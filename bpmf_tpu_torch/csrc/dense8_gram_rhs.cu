@@ -16,7 +16,8 @@
 // caller's p (hoisted).  The TPU kernel's fold (the cb-term riding the Gram
 // as K extra rows, saving an MXU pass) is not needed: both forms weigh each
 // rating by cs*code + cb as they compact it.  Outputs are item-major
-// ([items, T] and [items, K]); rows of the Gram past K(K+1)/2 are zeroed.
+// ([items, T] and [items, K]); #3 zeroes the Gram's rows past K(K+1)/2, #4
+// sums every row of p, its padding rows too, as the TPU kernel does.
 //
 // In-kernel (#3).  What bounds it on an H100: the f32 FMAs of the rated
 // entries, K(K+1)/2 + K per rating (2144 at K=64), and the latency of the
@@ -59,9 +60,41 @@
 // K=64); the last block of an item block sums all S partials alone; the
 // uniform S scratch is written for light items too.
 //
-// Hoisted (#4, not redesigned): one block owns one item, compacts its rated
-// entries with block-wide ballots (scan_step) and thread t sums every
-// nthreads-th entry of their p rows, read coalesced from global memory.
+// Hoisted (#4).  What bounds it on an H100: the bytes of the rated rows of
+// p, one packed row (T floats, 8.3 KB at K=64) per rating, which no other
+// item of the block reuses: 8.4 GB at [6144, 4096], 4% rated, K=64, many
+// times p itself.  They come from L2 only where the rows that the blocks
+// in flight read fit in it, and then at L2's read bandwidth.  On light
+// items the Gram write (items x T floats, 1.39 GB on chembl's 167k
+// compounds at K=64) bounds it instead.  Design, on #3's plan:
+//
+// * 8 items a block, a warp each; the code tiles staged and compacted as
+//   above (no block-wide barrier per scan step, no list to flush).
+// * Each lane owns T/128 float4 sums of the item's packed Gram in
+//   registers (instances of 2, 5, 10, 17 and 26 float4s: t_out up to 256,
+//   640, 1280, 2176 and 3328; 17 at K=64; 26 at K=79, one block an SM, no
+//   spill to shared memory).  Each rated row of p is read whole as
+//   coalesced float4 loads, all of a row in flight at once, by every warp
+//   of the SM; the rhs is K f32 FMAs a rating on v's row, lanes over k.
+// * The frozen axis is split into S segments (grid = item blocks x S, the
+//   segment the slow dimension; ops/dense8.hoisted_plan): the segments
+//   whose blocks run at once read at most 40 MB of p's rows, which stay
+//   in L2, and the most-rated item is summed on S SMs, at most 512 of its
+//   ratings a segment (its warp, one row in flight at a time, is the
+//   launch's longest chain).  The partials and the ordered last-block sum
+//   are #3's (no float atomics, launches bitwise equal).  The wrapper
+//   passes p as it lies: the item-major rows that ops/dense8.packed_tri_t
+//   builds are the transposed view the kernel reads, so no launch copies
+//   it.
+//
+// Known limits: a rated row is read by one warp, so two items of a block
+// that rate the same frozen entry read its row twice, and the bytes from
+// L2 stay one row a rating.  Blocks of 64 items that list the entries any
+// of them rated and bring each listed row through a shared-memory ring
+// once (2.8x fewer bytes at 4% density) were tried and were slower here:
+// one such block fills an SM, and its tile staging, listing and ring
+// barriers alone took about as long as this kernel.  The partials of
+// S > 1 are a round trip through HBM (S x items x T floats).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,10 +115,7 @@ using bpmf::kTile;
 constexpr int kMaxK = 80;      // the dense8 gate admits K <= 79
 constexpr int kThreads = bpmf::kStageThreads;
 constexpr int kBatch = 16;     // rated rows of v per cp.async stage (#3)
-constexpr int kCap = 1024;     // compacted rated entries held at a time (#4)
-constexpr int kHoistThreads = 256;
-constexpr int kHoistWarps = kHoistThreads / 32;
-constexpr int kHoistPer = 13;  // entries per thread: T_tight <= 3168 at K=79
+constexpr int kHoistMaxVec = 26;  // #4: float4 sums a lane, t_out <= 3328
 
 // -- #3: in-kernel products ------------------------------------------------
 
@@ -213,26 +243,34 @@ __device__ __forceinline__ float* segment_rhs(const GramArgs& a, int item) {
   return gridDim.y > 1 ? segment_gram(a, item) + tv : a.rhs + (size_t)item * a.k;
 }
 
-// After the block's sums are written: at S > 1 count the block's arrival;
-// the last block of the item block sums the S partials in segment order
-// 0..S-1 (lanes over the packed entries) and resets the counter.  Then the
-// rows past K(K+1)/2 are zeroed.
-__device__ __forceinline__ void finish(const GramArgs& a, int item) {
+// At S > 1, once the block's partials are written: counts the block's
+// arrival on its item block's counter and returns, uniformly over the
+// block, whether it is the last of the S segments (then with the others'
+// partials visible, and the counter reset for the next launch).
+__device__ __forceinline__ bool last_arrival(int* arrivals) {
   __shared__ int last_block;
+  __threadfence();  // this block's partials before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(arrivals + blockIdx.x, 1);
+    last_block = prev == (int)gridDim.y - 1;
+    if (last_block) arrivals[blockIdx.x] = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_block) return false;
+  __threadfence();
+  return true;
+}
+
+// After the block's sums are written: at S > 1 the last block of the item
+// block sums the S partials in segment order 0..S-1 (lanes over the packed
+// entries).  Then the rows past K(K+1)/2 are zeroed.
+__device__ __forceinline__ void finish(const GramArgs& a, int item) {
   const int lane = threadIdx.x & 31;
   const int k = a.k, tv = k * (k + 1) / 2, n_seg = gridDim.y;
   float* g = a.gram + (size_t)item * a.t_out;
   if (n_seg > 1) {
-    __threadfence();  // this block's partials before its arrival
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int prev = atomicAdd(a.arrivals + blockIdx.x, 1);
-      last_block = prev == n_seg - 1;
-      if (last_block) a.arrivals[blockIdx.x] = 0;  // ready for the next launch
-    }
-    __syncthreads();
-    if (!last_block) return;
-    __threadfence();
+    if (!last_arrival(a.arrivals)) return;
     // read through L2: other SMs wrote them
     for (int e = lane; e < tv + k; e += 32) {
       float sum = 0.f;
@@ -423,109 +461,169 @@ int dispatch_inkernel(dim3 grid, cudaStream_t s, const GramArgs& a) {
 
 // -- #4: hoisted operand ---------------------------------------------------
 
-struct Rated {
-  int idx[kCap];    // frozen index of each rated entry, in order
-  float w[kCap];    // its rhs weight cs*code + cb
-  int warp_cnt[2][kHoistWarps];
+struct HoistArgs {
+  const void* codes;
+  int n_cols, rows, n_tiles, tiles_per_seg, items, k;
+  const float* v;    // [n_frozen, k]
+  const float4* p;   // [n_frozen, t4]: the packed rows, 16-byte aligned
+  int t4;            // float4s of a packed row (t_out / 4)
+  float cs, cb;
+  int part;          // floats of an item's partial: t_out + roundup(k, 4)
+  float* partial;    // [S, items, part] when S > 1
+  int* arrivals;     // [items / 8], zero between launches (S > 1)
+  float* gram;       // [items, t_out]
+  float* rhs;        // [items, k]
 };
 
-// Appends the rated entries among frozen [n0, n0 + blockDim) of `item` to
-// r.idx/r.w after the `count` held; returns the new count (same in every
-// thread).
+// Dynamic shared memory of #4: two code stages, the per-warp hit lists.
 template <typename T>
-__device__ __forceinline__ int scan_step(Rated& r, const T* codes,
-                                         int n_cols, int n_frozen, int rows,
-                                         int item, int n0, int step,
-                                         int count, float cs, float cb) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int n = n0 + tid;
-  int c = 0;
-  if (n < n_frozen)
-    c = rows ? codes[(int64_t)item * n_cols + n] : codes[(int64_t)n * n_cols + item];
-  const unsigned m = __ballot_sync(kFull, c != 0);
-  const int par = step & 1;  // two count buffers: one barrier per step
-  if (lane == 0) r.warp_cnt[par][warp] = __popc(m);
-  __syncthreads();
-  int before = count, total = 0;
-  for (int w = 0; w < nwarps; ++w) {
-    const int cw = r.warp_cnt[par][w];
-    before += w < warp ? cw : 0;
-    total += cw;
-  }
-  if (c != 0) {
-    const int pos = before + __popc(m & ((1u << lane) - 1u));
-    r.idx[pos] = n;
-    r.w[pos] = fmaf(cs, (float)c, cb);
-  }
-  return count + total;
+struct HoistSmem {
+  static constexpr int kStage = kItemsPerBlock * kTile;  // codes per stage
+  static constexpr int kHitsOff = 2 * kStage * (int)sizeof(T);
+  static constexpr size_t kBytes = kHitsOff + kItemsPerBlock * kTile * 2;
+};
+
+__device__ __forceinline__ void add4(float4& s, const float4 x) {
+  s.x += x.x;
+  s.y += x.y;
+  s.z += x.z;
+  s.w += x.w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kHoistThreads)
-gram_rhs_hoisted(const T* __restrict__ codes, int n_cols, int n_frozen,
-                 int rows, int k, const float* __restrict__ v,  // [N, K]
-                 const float* __restrict__ p,                   // [N, t_in]
-                 int t_in, float cs, float cb,
-                 float* __restrict__ gram,                      // [items, t_in]
-                 float* __restrict__ rhs)                       // [items, K]
-{
-  __shared__ Rated r;
-  const int tid = threadIdx.x;
-  const int item = blockIdx.x;
-  float acc[kHoistPer];
+// A block owns 8 items, a warp each, over the frozen tiles of segment
+// blockIdx.y: the code tiles are staged and compacted as #3 does them; each
+// rated entry's packed row of p is read whole, lane l taking float4s l,
+// l + 32, ... (NV of them: t_out <= 128 NV) into its NV float4 sums, and
+// its rhs term is K FMAs on v's row (lanes over k).  Then the sums go to
+// the outputs (S = 1) or the segment's partial, whose last block sums the
+// S partials in segment order.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads, NV <= 17 ? 2 : 1)
+gram_rhs_hoisted(const HoistArgs a) {
+  using L = HoistSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* stage = reinterpret_cast<T*>(smem);
+  uint16_t* hits = reinterpret_cast<uint16_t*>(smem + L::kHitsOff) + warp * kTile;
+  const T* codes = static_cast<const T*>(a.codes);
+  const int item0 = blockIdx.x * kItemsPerBlock;
+  const int item = item0 + warp;
+  const int k = a.k, t4 = a.t4;
+  const int t0 = blockIdx.y * a.tiles_per_seg;
+  const int t1 = min(a.n_tiles, t0 + a.tiles_per_seg);
+  float4 acc[NV];
 #pragma unroll
-  for (int q = 0; q < kHoistPer; ++q) acc[q] = 0.f;
-  float racc = 0.f;
+  for (int j = 0; j < NV; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float r[3] = {0.f, 0.f, 0.f};  // rhs entries lane, lane + 32, lane + 64
 
-  int count = 0, step = 0;
-  for (int n0 = 0; n0 < n_frozen; n0 += kHoistThreads, ++step) {
-    count = scan_step(r, codes, n_cols, n_frozen, rows, item, n0, step, count,
-                      cs, cb);
-    if (count + kHoistThreads <= kCap && n0 + kHoistThreads < n_frozen) continue;
-    __syncthreads();  // the list is complete
-#pragma unroll 4
-    for (int e = 0; e < count; ++e) {
-      const int n = r.idx[e];
-      const float* pr = p + (int64_t)n * t_in;
-#pragma unroll
-      for (int q = 0; q < kHoistPer; ++q) {
-        const int t = tid + q * kHoistThreads;
-        if (t < t_in) acc[q] += __ldg(pr + t);
-      }
-      if (tid < k) racc = fmaf(r.w[e], __ldg(v + (int64_t)n * k + tid), racc);
+  issue_tile(stage, codes, a.rows, a.n_cols, item0, t0 * kTile);
+  cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    const T* tile = stage + buf * L::kStage;
+    __syncthreads();  // every warp is done with the other stage and its hits
+    if (t + 1 < t1)
+      issue_tile(stage + (buf ^ 1) * L::kStage, codes, a.rows, a.n_cols, item0,
+                 (t + 1) * kTile);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (the next tile's may fly)
+    __syncthreads();
+    const int n0 = t * kTile;
+
+    // compact this item's rated entries of the tile, in order
+    int count = 0;
+    for (int q = 0; q < kTile; q += 32) {
+      const T c = code_at(tile, a.rows, warp, q + lane);
+      const unsigned m = __ballot_sync(kFull, c != 0);
+      if (c != 0) hits[count + __popc(m & ((1u << lane) - 1u))] = (uint16_t)(q + lane);
+      count += __popc(m);
     }
-    __syncthreads();  // the list is free again
-    count = 0;
+    __syncwarp();
+
+#pragma unroll 1
+    for (int e = 0; e < count; ++e) {
+      const int q = hits[e];
+      const int64_t n = n0 + q;
+      const float4* row = a.p + n * t4;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (lane + 32 * j < t4) add4(acc[j], __ldg(row + lane + 32 * j));
+      const float w = fmaf(a.cs, (float)code_at(tile, a.rows, warp, q), a.cb);
+      const float* vr = a.v + n * k;
+#pragma unroll
+      for (int q3 = 0; q3 < 3; ++q3)
+        if (lane + 32 * q3 < k) r[q3] = fmaf(w, __ldg(vr + lane + 32 * q3), r[q3]);
+    }
   }
 
-  float* g = gram + (int64_t)item * t_in;
+  const bool split = gridDim.y > 1;
+  float* g = split ? a.partial + ((size_t)blockIdx.y * a.items + item) * a.part
+                   : a.gram + (size_t)item * 4 * t4;
+  float* rd = split ? g + 4 * t4 : a.rhs + (size_t)item * k;
 #pragma unroll
-  for (int q = 0; q < kHoistPer; ++q) {
-    const int t = tid + q * kHoistThreads;
-    if (t < t_in) g[t] = acc[q];
+  for (int j = 0; j < NV; ++j)
+    if (lane + 32 * j < t4) reinterpret_cast<float4*>(g)[lane + 32 * j] = acc[j];
+#pragma unroll
+  for (int q3 = 0; q3 < 3; ++q3)
+    if (lane + 32 * q3 < k) rd[lane + 32 * q3] = r[q3];
+  if (!split || !last_arrival(a.arrivals)) return;
+
+  // the last block of the item block: the S partials in segment order, read
+  // through L2 (other SMs wrote them)
+  const int n_seg = gridDim.y;
+  const size_t seg = (size_t)a.items * a.part;  // floats between segments
+  const float* src = a.partial + (size_t)item * a.part;
+  float4* out = reinterpret_cast<float4*>(a.gram + (size_t)item * 4 * t4);
+  for (int c = lane; c < t4; c += 32) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n_seg; ++s)
+      add4(sum, __ldcg(reinterpret_cast<const float4*>(src + s * seg) + c));
+    out[c] = sum;
   }
-  if (tid < k) rhs[(int64_t)item * k + tid] = racc;
+  for (int kk = lane; kk < k; kk += 32) {
+    float sum = 0.f;
+    for (int s = 0; s < n_seg; ++s) sum += __ldcg(src + s * seg + 4 * t4 + kk);
+    a.rhs[(size_t)item * k + kk] = sum;
+  }
+}
+
+template <typename T, int NV>
+int launch_hoisted(dim3 grid, cudaStream_t s, const HoistArgs& a) {
+  gram_rhs_hoisted<T, NV><<<grid, kThreads, HoistSmem<T>::kBytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The instance of t_out: NV float4 sums a lane, t_out <= 128 NV
+template <typename T>
+int dispatch_hoisted(dim3 grid, cudaStream_t s, const HoistArgs& a) {
+  if (a.t4 <= 32 * 2) return launch_hoisted<T, 2>(grid, s, a);     // tight K <= 22
+  if (a.t4 <= 32 * 5) return launch_hoisted<T, 5>(grid, s, a);     // tight K <= 35
+  if (a.t4 <= 32 * 10) return launch_hoisted<T, 10>(grid, s, a);   // tight K <= 50
+  if (a.t4 <= 32 * 17) return launch_hoisted<T, 17>(grid, s, a);   // tight K <= 65
+  return launch_hoisted<T, kHoistMaxVec>(grid, s, a);              // tight K <= 79
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  codes is [n_rows, n_cols],
-// row-major, of code_bytes bytes each (1: int8, 2: int16); rows != 0 makes
-// the code rows the items.  v is [N, v_stride] row-major (N = the frozen
-// count).  p == null selects the in-kernel products (#3): v_stride is the
-// instance's width (16, 32, 48 or 64 up to k = 64, else roundup(k, 4); the
-// wrapper's gram_row_floats) with zero columns past k, codes and v start
-// on 16-byte boundaries, both code dimensions are multiples of 512, gram
-// is [items, t_out] in the tight layout with rows past k(k+1)/2 zeroed,
-// and the frozen axis's 512-entry tiles are split into `segments` runs of
-// `tiles_per_seg` (every run non-empty); with more than one, `partial` is
-// a float32 scratch [segments, items, k(k+1)/2 + k] and `arrivals` an
-// int32 [items / 8] that is zero before the launch and left zero after it,
-// so launches that share it must be ordered (one stream).  Otherwise (#4)
-// v_stride is k, p is [N, t_out] row-major, gram [items, t_out], and the
-// segment arguments are ignored.  rhs is [items, k].  Launches on
-// `stream`, returns cudaGetLastError().
+// row-major, of code_bytes bytes each (1: int8, 2: int16), starting on a
+// 16-byte boundary, both dimensions multiples of 512; rows != 0 makes the
+// code rows the items.  The frozen axis's 512-entry tiles are split into
+// `segments` runs of `tiles_per_seg` (every run non-empty); with more than
+// one, `partial` is a float32 scratch [segments, items, part] and
+// `arrivals` an int32 [items / 8] that is zero before the launch and left
+// zero after it, so launches that share it must be ordered (one stream).
+// v is [N, v_stride] row-major (N = the frozen count).  p == null selects
+// the in-kernel products (#3): v_stride is the instance's width (16, 32, 48
+// or 64 up to k = 64, else roundup(k, 4); the wrapper's gram_row_floats)
+// with zero columns past k, v starts on a 16-byte boundary, gram is
+// [items, t_out] in the tight layout with rows past k(k+1)/2 zeroed, and
+// part = k(k+1)/2 + k.  Otherwise (#4) v_stride is k, p is [N, t_out]
+// row-major on a 16-byte boundary with t_out a multiple of 4 up to 3328,
+// every one of its rows is summed into gram [items, t_out], and part =
+// t_out + roundup(k, 4).  rhs is [items, k].  Launches on `stream`,
+// returns cudaGetLastError().
 extern "C" int bpmf_dense8_gram_rhs(const void* codes, int code_bytes,
                                     int n_rows, int n_cols, int rows, int k,
                                     const void* v, int v_stride, const void* p,
@@ -538,40 +636,37 @@ extern "C" int bpmf_dense8_gram_rhs(const void* codes, int code_bytes,
   if (k < 1 || k >= kMaxK || items < 1 || n_frozen < 1 ||
       (code_bytes != 1 && code_bytes != 2))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* vf = static_cast<const float*>(v);
-  float* gf = static_cast<float*>(gram);
-  float* rf = static_cast<float*>(rhs);
-  if (p != nullptr) {
-    if (v_stride != k || t_out > kHoistThreads * kHoistPer)
-      return (int)cudaErrorInvalidValue;
-    const float* pf = static_cast<const float*>(p);
-    if (code_bytes == 1)
-      gram_rhs_hoisted<int8_t><<<items, kHoistThreads, 0, s>>>(
-          static_cast<const int8_t*>(codes), n_cols, n_frozen, rows, k, vf, pf,
-          t_out, cs, cb, gf, rf);
-    else
-      gram_rhs_hoisted<int16_t><<<items, kHoistThreads, 0, s>>>(
-          static_cast<const int16_t*>(codes), n_cols, n_frozen, rows, k, vf, pf,
-          t_out, cs, cb, gf, rf);
-    return (int)cudaGetLastError();
-  }
   const int n_tiles = n_frozen / kTile;
-  if (t_out < k * (k + 1) / 2 ||
-      items % kItemsPerBlock != 0 || n_frozen % kTile != 0 ||
+  if (items % kItemsPerBlock != 0 || n_frozen % kTile != 0 ||
       n_cols % kItemsPerBlock != 0 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v) % 16 != 0)
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (segments < 1 || segments > 65535 || tiles_per_seg < 1 ||
       (long long)segments * tiles_per_seg < n_tiles ||
       (long long)(segments - 1) * tiles_per_seg >= n_tiles ||
       (segments > 1 && (partial == nullptr || arrivals == nullptr)))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* vf = static_cast<const float*>(v);
+  float* gf = static_cast<float*>(gram);
+  float* rf = static_cast<float*>(rhs);
+  const dim3 grid(items / kItemsPerBlock, segments);
+  if (p != nullptr) {
+    if (v_stride != k || t_out < 4 || t_out % 4 != 0 ||
+        t_out > 4 * 32 * kHoistMaxVec || reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const HoistArgs a{codes, n_cols, rows, n_tiles, tiles_per_seg, items, k, vf,
+                      static_cast<const float4*>(p), t_out / 4, cs, cb,
+                      t_out + (k + 3) / 4 * 4, static_cast<float*>(partial),
+                      static_cast<int*>(arrivals), gf, rf};
+    return code_bytes == 1 ? dispatch_hoisted<int8_t>(grid, s, a)
+                           : dispatch_hoisted<int16_t>(grid, s, a);
+  }
+  if (t_out < k * (k + 1) / 2 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const GramArgs a{codes, n_cols, rows, n_tiles, tiles_per_seg, items, k,
                    vf, v_stride, cs, cb, t_out, static_cast<float*>(partial),
                    static_cast<int*>(arrivals), gf, rf};
-  const dim3 grid(items / kItemsPerBlock, segments);
   return code_bytes == 1 ? dispatch_inkernel<int8_t>(grid, s, a)
                          : dispatch_inkernel<int16_t>(grid, s, a);
 }

@@ -40,26 +40,15 @@
 //   those rows, batch-last as it lies, so its padding rows (which repeat
 //   the (0, 0) entry) are never read.  Then A = prior + alpha*G in place.
 // * K <= 64 (instances of capacity 8, 16, 24, 32, 48, 64, runtime K): the
-//   megakernel's solve (dense8_sweep_solve.cu), with up to two rows a lane.
-//   Row i lives on lane i % 32 in registers, entries 0 .. i only (32 for
-//   the first row group, 64 for the second: 96 registers at K=64, where
-//   two full 64-wide rows would spill); each finished column of L goes to
-//   shared memory (a compact column store, every column on a 16-byte
-//   boundary) and is read back by float4 broadcast; the forward pass uses
-//   shuffles, the back substitution runs by columns; the pivot's rsqrt
-//   serves as the inverse diagonal, so no step divides.  The loops over
-//   the capacity are unrolled, so every predicate but the lane's is fixed
-//   at compile time.  A K below the capacity is padded block-diagonally
-//   in registers (identity rows, zero rhs and noise); the padded rows draw
-//   exact zeros and are never written.
-// * K 65-79 (three rows a lane, runtime K): the triangle stays in the
-//   warp's shared area with lanes over rows (row i on lane i % 32).  The
-//   Cholesky runs in panels of 8 columns: the panel's entries of the
-//   lane's rows are factored in registers (pivots and column entries by
-//   shuffle, rsqrt pivots), the panel's rows are copied into a row-major
-//   [K][8] buffer, and the trailing triangle is updated once per panel, 8
-//   FMAs per load and store, the panel row read by two float4 broadcasts.
-//   Both substitutions run by columns from the factor in shared memory.
+//   register solve of warp_chol.cuh (solve_rows, the megakernel's solve of
+//   dense8_sweep_solve.cu), row i on lane i % 32, up to two rows a lane,
+//   rsqrt pivots and no divides.
+// * K 65-79 (three rows a lane, runtime K): the panels of warp_chol.cuh
+//   (solve_panels), the triangle factored in place in the warp's area in
+//   panels of 8 columns.
+//
+// The solve of full precisions (chol_solve_sample.cu, #8) runs the same two
+// solvers from the same header.
 //
 // Known limits: lanes past K idle in the register solve (K=33 runs on the
 // capacity 48); the panel path issues several times the register path's
@@ -69,12 +58,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_chol.cuh"  // the warp's Cholesky and solves, shared with #8
+
 namespace {
+
+using bpmf::ItemVecs;
+using bpmf::kPanel;
+using bpmf::lcol_floats;
+using bpmf::round4;
+using bpmf::tight_off;
 
 constexpr int kMaxK = 80;        // the dense8 gate admits K <= 79
 constexpr int kMaxThreads = 256;
-constexpr int kPanel = 8;        // columns per panel (K > 64)
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemPerSm = 227 * 1024;  // usable shared memory of an SM
 
 struct Args {
@@ -94,12 +89,6 @@ struct Args {
   int area;    // floats of one warp's work area, a multiple of 4
   int fast;    // gram item-major in 16-byte aligned runs: cp.async
 };
-
-__host__ __device__ __forceinline__ int tight_off(int j, int k) {
-  return j * k - j * (j - 1) / 2;
-}
-
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) / 4 * 4; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -172,248 +161,6 @@ __device__ void stage(const Args& a, float* work, float* lam_s, uint16_t* arow) 
   __syncthreads();
 }
 
-// Floats of the factor's column store at capacity KP: column j holds rows
-// 4*(j/4) .. KP-1, so that every column starts on a 16-byte boundary and
-// rows 4m .. 4m+3 of it are one float4.
-__host__ __device__ constexpr int lcol_floats(int kp) {
-  return kp * kp - 8 * (kp / 4) * (kp / 4 - 1);
-}
-
-// Start of column j in that store, less its first row 4*(j/4): entry
-// (i, j), i >= 4*(j/4), lies at lcol_base(j) + i.
-template <int KP>
-__host__ __device__ __forceinline__ int lcol_base(int j) {
-  const int q = j / 4;
-  return 4 * KP * q - 8 * q * (q - 1) + (j % 4) * (KP - 4 * q) - 4 * q;
-}
-
-// K <= KP <= 64: rows lane and lane + 32 of the system in registers (group
-// r holds row lane + 32r, entries 0 .. min(KP, 32(r+1)) - 1), the
-// megakernel's Cholesky and substitutions.  w holds the item's packed
-// system on entry and the factor's columns (lcol_base) after.
-template <int KP>
-__device__ __forceinline__ void solve_rows(const Args& a, float* w, int item) {
-  constexpr int R = (KP + 31) / 32;
-  const int k = a.k, lane = threadIdx.x & 31;
-  float g[R][KP], y[R], noise[R], inv[R], u[R];
-  int colb[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    y[r] = i < k ? __ldg(a.rhs + i * a.r_sk + item * a.r_sb) : 0.f;
-    noise[r] = i < k ? __ldg(a.noise + i * a.n_sk + item * a.n_sb) : 0.f;
-    inv[r] = u[r] = 0.f;
-    colb[r] = lcol_base<KP>(i);
-#pragma unroll
-    for (int j = 0; j < KP && j < 32 * (r + 1); ++j)
-      g[r][j] = (i < k && j <= i) ? w[tight_off(j, k) + i - j]
-                                  : (i == j ? 1.f : 0.f);  // padded: identity
-  }
-  __syncwarp();  // w is the factor's columns from here
-
-  // right-looking Cholesky: after step j, row i > j holds L_ij in g[.][j],
-  // the owner of row j the inverse pivot, and column j of L lies in w,
-  // whence every lane reads it by float4 broadcast for its update
-#pragma unroll
-  for (int j = 0; j < KP; ++j) {
-    const int jr = j / 32;
-    const float d = rsqrtf(__shfl_sync(kFull, g[jr][j], j % 32));
-    float lij[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (32 * (r + 1) <= j) continue;  // rows of this group are above j
-      const int i = lane + 32 * r;
-      lij[r] = g[r][j] * d;
-      g[r][j] = lij[r];
-      if (i == j) inv[r] = d;
-      if (i >= 4 * (j / 4) && i < KP) w[lcol_base<KP>(j) + i] = lij[r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k4 = (j + 1) / 4; k4 < KP / 4; ++k4) {
-      const float4 c = *reinterpret_cast<const float4*>(w + lcol_base<KP>(j) + 4 * k4);
-      const float cs[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (32 * (r + 1) <= j) continue;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = 4 * k4 + q;
-          if (col > j && col < 32 * (r + 1))
-            g[r][col] = fmaf(-lij[r], cs[q], g[r][col]);
-        }
-      }
-    }
-  }
-
-  // forward substitution L z = y (row i of L in its lane's registers)
-#pragma unroll
-  for (int j = 0; j < KP; ++j) {
-    const int jr = j / 32;
-    if (lane == j % 32) y[jr] *= inv[jr];
-    const float zj = __shfl_sync(kFull, y[jr], j % 32);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (32 * (r + 1) > j && lane + 32 * r > j) y[r] = fmaf(-g[r][j], zj, y[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) y[r] += noise[r];
-
-  // back substitution L' u = y by columns: u_j = y_j / L_jj, then every
-  // row i < j takes L_ji u_j off y_i, L_ji read from column i
-#pragma unroll
-  for (int j = KP - 1; j >= 0; --j) {
-    const int jr = j / 32;
-    if (lane == j % 32) u[jr] = y[jr] * inv[jr];
-    const float uj = __shfl_sync(kFull, u[jr], j % 32);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (32 * r < j && lane + 32 * r < j) y[r] = fmaf(-w[colb[r] + j], uj, y[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    if (i < k) a.out[(int64_t)item * k + i] = u[r];
-  }
-}
-
-// Entry r of a lane's row registers, chosen by a warp-uniform row group.
-template <int R>
-__device__ __forceinline__ float pick(const float (&x)[R], int r) {
-  float v = x[0];
-#pragma unroll
-  for (int q = 1; q < R; ++q)
-    if (r == q) v = x[q];
-  return v;
-}
-
-// 32 < K <= 32R: the packed system in w (column j from w[tight_off(j)]),
-// lanes over rows (row i on lane i % 32, group i / 32), factored in place
-// in panels of kPanel columns; each diagonal entry ends as the inverse
-// pivot.  p is the warp's [K][kPanel] row-major panel buffer.
-template <int R>
-__device__ __forceinline__ void solve_panels(const Args& a, float* w, float* p,
-                                             int item) {
-  const int k = a.k, lane = threadIdx.x & 31;
-  float y[R], noise[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    y[r] = i < k ? __ldg(a.rhs + i * a.r_sk + item * a.r_sb) : 0.f;
-    noise[r] = i < k ? __ldg(a.noise + i * a.n_sk + item * a.n_sb) : 0.f;
-  }
-
-  for (int j0 = 0; j0 < k; j0 += kPanel) {
-    // the panel's columns of this lane's rows (0 above the diagonal and
-    // past K)
-    float l[kPanel][R];
-#pragma unroll
-    for (int q = 0; q < kPanel; ++q) {
-      const int j = j0 + q;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = lane + 32 * r;
-        l[q][r] = (j < k && i >= j && i < k) ? w[tight_off(j, k) + i - j] : 0.f;
-      }
-    }
-    // factor the panel in registers: pivots and column entries by shuffle
-#pragma unroll
-    for (int q = 0; q < kPanel; ++q) {
-      const int j = j0 + q;
-      if (j >= k) break;
-      const float d = rsqrtf(__shfl_sync(kFull, pick(l[q], j >> 5), j & 31));
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = lane + 32 * r;
-        l[q][r] = i == j ? d : l[q][r] * d;
-      }
-#pragma unroll
-      for (int c = q + 1; c < kPanel; ++c) {
-        const int jc = j0 + c;
-        if (jc >= k) break;
-        const float lc = __shfl_sync(kFull, pick(l[q], jc >> 5), jc & 31);
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (lane + 32 * r >= jc) l[c][r] = fmaf(-l[q][r], lc, l[c][r]);
-      }
-    }
-    // the panel back to w (columns of L), its rows below it to p
-#pragma unroll
-    for (int q = 0; q < kPanel; ++q) {
-      const int j = j0 + q;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = lane + 32 * r;
-        if (j < k && i >= j && i < k) w[tight_off(j, k) + i - j] = l[q][r];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i >= j0 + kPanel && i < k) {
-        float4* row = reinterpret_cast<float4*>(p + i * kPanel);
-        row[0] = make_float4(l[0][r], l[1][r], l[2][r], l[3][r]);
-        row[1] = make_float4(l[4][r], l[5][r], l[6][r], l[7][r]);
-      }
-    }
-    __syncwarp();
-    // trailing update: A_ic -= sum_q L_i,j0+q L_c,j0+q for c past the panel
-    for (int c = j0 + kPanel; c < k; ++c) {
-      const float4 c0 = reinterpret_cast<const float4*>(p + c * kPanel)[0];
-      const float4 c1 = reinterpret_cast<const float4*>(p + c * kPanel)[1];
-      float* col = w + tight_off(c, k) - c;  // col[i] = A_ic
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = lane + 32 * r;
-        if (32 * r + 31 < c) continue;  // the whole row group is above c
-        if (i >= c && i < k) {
-          float s = col[i];
-          s = fmaf(-l[0][r], c0.x, s);
-          s = fmaf(-l[1][r], c0.y, s);
-          s = fmaf(-l[2][r], c0.z, s);
-          s = fmaf(-l[3][r], c0.w, s);
-          s = fmaf(-l[4][r], c1.x, s);
-          s = fmaf(-l[5][r], c1.y, s);
-          s = fmaf(-l[6][r], c1.z, s);
-          s = fmaf(-l[7][r], c1.w, s);
-          col[i] = s;
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-  // forward substitution L z = y by columns
-  for (int j = 0; j < k; ++j) {
-    const float* col = w + tight_off(j, k) - j;
-    const float zj = __shfl_sync(kFull, pick(y, j >> 5), j & 31) * col[j];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i == j) y[r] = zj;
-      else if (i > j && i < k) y[r] = fmaf(-col[i], zj, y[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) y[r] += noise[r];
-  // back substitution L' u = z + noise by columns: u_j = y_j / L_jj, then
-  // every row i < j takes L_ji u_j off y_i, L_ji read from column i
-  for (int j = k - 1; j >= 0; --j) {
-    const float uj = __shfl_sync(kFull, pick(y, j >> 5), j & 31) *
-                     w[tight_off(j, k)];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i == j) y[r] = uj;
-      else if (i < j) y[r] = fmaf(-w[tight_off(i, k) + j - i], uj, y[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    if (i < k) a.out[(int64_t)item * k + i] = y[r];
-  }
-}
 
 // KP > 0: the register solve at capacity KP; else R rows a lane.
 template <int KP, int R>
@@ -426,10 +173,12 @@ tri_combine_solve_kernel(const Args a) {
   const int item = blockIdx.x * nw + warp;
   if (item >= a.b) return;
   float* w = smem + warp * a.area;
+  const ItemVecs v{a.rhs + item * a.r_sb, a.r_sk, a.noise + item * a.n_sb, a.n_sk,
+                   a.out + (int64_t)item * a.k};
   if constexpr (KP > 0) {
-    solve_rows<KP>(a, w, item);
+    bpmf::solve_rows<KP>(w, a.k, v);
   } else {
-    solve_panels<R>(a, w, w + round4(a.k * (a.k + 1) / 2), item);
+    bpmf::solve_panels<R>(w, w + round4(a.k * (a.k + 1) / 2), a.k, v);
   }
 }
 

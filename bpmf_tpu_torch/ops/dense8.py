@@ -17,8 +17,9 @@ Device part, two routes:
   :func:`packed_tri_t` in the tight or the 8-aligned layout (#2);
 * the first stage of the split pipeline, :func:`dense8_gram_rhs_rows` /
   :func:`dense8_gram_rhs_cols`: the packed Gram and the rhs only
-  (``csrc/dense8_gram_rhs.cu``; the in-kernel products split the frozen
-  axis by :func:`sweep_plan` as the megakernel does), then
+  (``csrc/dense8_gram_rhs.cu``; both split the frozen axis into segments,
+  the in-kernel products by :func:`sweep_plan` as the megakernel does, the
+  hoisted operand by :func:`hoisted_plan`), then
   ``ops/pallas_solve`` solves.
 
 Each has a plain PyTorch version (``*_ref``).  A wrapper runs the plain
@@ -62,6 +63,7 @@ __all__ = [
     "dense8_sweep_solve",
     "dense8_sweep_solve_ref",
     "sweep_plan",
+    "hoisted_plan",
 ]
 
 BLOCK_MULTIPLE = 512  # both sides' padded_num must be a multiple of this
@@ -71,7 +73,7 @@ BLOCK_MULTIPLE = 512  # both sides' padded_num must be a multiple of this
 INKERNEL_CAPACITIES = (8, 16, 24, 32)
 FUSED_MAX_K = INKERNEL_CAPACITIES[-1]
 HOISTED_K = (16, 32)
-HOISTED_MAX_ROWS = 256 * 13  # gram_rhs_hoisted: threads x entries per thread
+HOISTED_MAX_ROWS = 128 * 26  # gram_rhs_hoisted: 32 lanes x 26 float4 sums
 # The in-kernel Gram's (#3) register-row instances; past the last, K runs
 # on 4x4 tiles
 GRAM_ROW_CAPACITIES = (16, 32, 48, 64)
@@ -372,17 +374,13 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
         v = F.pad(v_t.t(), (0, kv - k)).contiguous()          # [N, KV]
         t_out, p = tight_rows(k), None
         plan = sweep_plan(items, frozen, k, max_degree, _sm_count(dev))
-        if plan.segments > 1:
-            partial = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
-            arrivals = _arrival_counters(dev, stream, plan.counters)
     else:
-        kv, v = k, v_t.t().contiguous()                       # [N, K]
-        t_out = p_t.shape[0]
-        p = p_t.t().contiguous()                              # [N, T]
-        if t_out > HOISTED_MAX_ROWS:
-            raise ValueError(f"p_t has {t_out} rows; the kernel takes at most "
-                             f"{HOISTED_MAX_ROWS}")
-        plan = SweepPlan(1, frozen // BLOCK_MULTIPLE, (), 0)
+        kv, v, p = k, v_t.t().contiguous(), _hoisted_rows(p_t)  # [N, K], [N, T]
+        t_out = p.shape[1]
+        plan = hoisted_plan(items, frozen, t_out, k, max_degree, _sm_count(dev))
+    if plan.segments > 1:
+        partial = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+        arrivals = _arrival_counters(dev, stream, plan.counters)
     gram = torch.empty((items, t_out), dtype=torch.float32, device=dev)
     rhs = torch.empty((items, k), dtype=torch.float32, device=dev)
     r, c = codes.shape
@@ -397,6 +395,24 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
         raise RuntimeError(f"dense8_gram_rhs kernel launch failed: cudaError {err}")
     gram_launches["hoisted" if p is not None else "inkernel"] += 1
     return gram.t(), rhs.t()
+
+
+def _hoisted_rows(p_t: torch.Tensor) -> torch.Tensor:
+    """p_t [T, N] as the row-major [N, T] tensor #4 reads: its transposed
+    view, with no copy when p_t is one (as :func:`packed_tri_t` gives);
+    a batch-last p_t is copied.  Refuses a T the kernel has no instance
+    for (a multiple of 4 up to :data:`HOISTED_MAX_ROWS`: its rows are read
+    as float4s) and rows off a 16-byte boundary."""
+    t = p_t.shape[0]
+    if t > HOISTED_MAX_ROWS or t % 4:
+        raise ValueError(f"p_t has {t} rows; the kernel takes a multiple of 4 "
+                         f"up to {HOISTED_MAX_ROWS}")
+    p = p_t.t()
+    if not p.is_contiguous():
+        p = p.contiguous()
+    if p.data_ptr() % 16:
+        raise ValueError("p_t's rows must start on a 16-byte boundary")
+    return p
 
 
 @functools.cache
@@ -428,11 +444,15 @@ def dense8_gram_rhs_rows(codes: torch.Tensor, p_t: Optional[torch.Tensor],
     16-byte boundary).  Outputs on the card are the transposed views of
     item-major tensors.
 
-    The in-kernel products (#3) split the frozen axis into the segments of
-    :func:`sweep_plan`, from ``max_degree`` (the most ratings any item of
-    this side has, at most the frozen count; the sampler passes it) or
-    from the shape alone; the result is the same bit for bit from launch
-    to launch.  The hoisted operand (#4) ignores it."""
+    Both kernels split the frozen axis into segments, from ``max_degree``
+    (the most ratings any item of this side has, at most the frozen count;
+    the sampler passes it) or from the shape alone: the in-kernel products
+    (#3) by :func:`sweep_plan`, the hoisted operand (#4) by
+    :func:`hoisted_plan`, which also keeps a segment's rows of ``p_t``
+    within L2.  The result is the same bit for bit from launch to launch.
+    #4 reads ``p_t`` as the transposed view of an item-major [C, T] tensor,
+    which :func:`packed_tri_t` gives, with no copy; it takes T a multiple
+    of 4 up to :data:`HOISTED_MAX_ROWS`."""
     return _gram_rhs(codes, p_t, v_t, cs, cb, "rows", max_degree)
 
 
@@ -493,14 +513,21 @@ BLOCKS_PER_SM = 2         # ... and its blocks resident on one SM
 SEGMENT_RATINGS = 2048    # at most this many of the most-rated item's
                           # ratings in one segment of the frozen axis
 SCRATCH_LIMIT_BYTES = 1 << 30  # the segments' partial sums at most
+HOISTED_SEGMENT_RATINGS = 512  # #4 reads one rated row of p at a time a
+                               # warp, so it takes fewer of the most-rated
+                               # item's ratings a segment than SEGMENT_RATINGS
+HOISTED_L2_BYTES = 40 << 20  # #4: at most this much of p's rows under the
+                             # blocks in flight, so they stay in an H100's
+                             # 50 MB L2 beside the Gram's writes
 
 
 class SweepPlan(NamedTuple):
-    """How the megakernel splits the frozen axis (:func:`sweep_plan`)."""
+    """How a kernel splits the frozen axis (:func:`sweep_plan`,
+    :func:`hoisted_plan`)."""
 
     segments: int           # S: blocks per item block
     tiles_per_segment: int  # 512-entry tiles each segment sums
-    scratch_shape: tuple    # the partial sums [S, items, K(K+1)/2 + K], or ()
+    scratch_shape: tuple    # the partial sums [S, items, floats an item], or ()
     counters: int           # arrival counters, one per item block, or 0
 
 
@@ -517,12 +544,40 @@ def sweep_plan(items: int, frozen: int, k: int, max_degree: Optional[int] = None
     :data:`SCRATCH_LIMIT_BYTES`, then evened out so that every segment
     holds ``tiles_per_segment`` tiles but the last, which holds at least
     one.  Without ``max_degree`` S comes from the shape alone."""
+    return _segment_plan(items, frozen, k * (k + 1) // 2 + k, max_degree, sms)
+
+
+def hoisted_plan(items: int, frozen: int, t: int, k: int,
+                 max_degree: Optional[int] = None, sms: int = 132) -> SweepPlan:
+    """The segment count S of the hoisted Gram (#4) on a packed operand of
+    ``t`` rows: :func:`sweep_plan`'s rule (two waves of blocks, the tiles
+    and the scratch as caps), with at most :data:`HOISTED_SEGMENT_RATINGS`
+    of the most-rated item's ratings a segment (its warp's rows, one at a
+    time, are the launch's longest chain), and besides few enough tiles a
+    segment (one at least) that the rows of p (``t`` floats each) of the
+    segments whose blocks run at once fit :data:`HOISTED_L2_BYTES`.  The
+    segment is the grid's slow dimension, so with ``items / 8`` blocks a
+    segment and two blocks an SM, ``2 * sms / (items / 8)`` segments (one
+    at least) run at once.  The scratch holds an item's packed Gram and
+    rhs, [S, items, t + roundup(K, 4)]."""
+    at_once = -(-BLOCKS_PER_SM * sms // (items // ITEMS_PER_BLOCK))
+    tiles = max(1, HOISTED_L2_BYTES // (at_once * 4 * t * BLOCK_MULTIPLE))
+    return _segment_plan(items, frozen, t + -(-k // 4) * 4, max_degree, sms,
+                         ratings=HOISTED_SEGMENT_RATINGS, max_tiles=tiles)
+
+
+def _segment_plan(items, frozen, partial, max_degree, sms,
+                  ratings=SEGMENT_RATINGS, max_tiles=None):
+    """sweep_plan and hoisted_plan for an item's ``partial`` floats of
+    scratch, at most ``ratings`` of the most-rated item's ratings and, where
+    given, ``max_tiles`` tiles a segment."""
     tiles = frozen // BLOCK_MULTIPLE
     blocks = items // ITEMS_PER_BLOCK
-    partial = k * (k + 1) // 2 + k
     want = -(-2 * BLOCKS_PER_SM * sms // blocks)
     if max_degree:
-        want = max(want, -(-int(max_degree) // SEGMENT_RATINGS))
+        want = max(want, -(-int(max_degree) // ratings))
+    if max_tiles:
+        want = max(want, -(-tiles // max_tiles))
     cap = max(1, SCRATCH_LIMIT_BYTES // (4 * items * partial))
     per = -(-tiles // max(1, min(want, tiles, cap)))
     s = -(-tiles // per)

@@ -33,7 +33,9 @@ package.
 plain dense routes (solver ``pallas``/``smart``): a hand-written CUDA kernel
 (``csrc/chol_solve_sample.cu``, Queue 2 #8) that reads the item-major
 [B, K, K] precision directly, where the TPU kernel transposes the batch
-last and pads it with identity systems; its plain version is
+last and pads it with identity systems.  It gives each item a warp and
+runs #5's solve (``csrc/warp_chol.cuh``) at the instance
+:func:`blast_instance` names; its plain version is
 :func:`chol_solve_sample_pallas_blast_ref`.
 """
 
@@ -62,6 +64,7 @@ __all__ = [
     "prior_rhs_from_tri",
     "chol_solve_sample_pallas_blast",
     "chol_solve_sample_pallas_blast_ref",
+    "blast_instance",
 ]
 
 # CUDA launches of the packed-triangle solve with the shared prior (#5)
@@ -346,6 +349,34 @@ def chol_solve_sample_pallas_blast(
             f"chol_solve_sample kernel launch failed: cudaError {err}")
     solve_launches["blast"] += 1
     return out
+
+
+# The batched solve's (#8) register-solve capacities; a K past the last
+# runs on the panels, three rows a lane up to 96, four past it
+BLAST_CAPACITIES = (8, 16, 24, 32, 48, 64)
+SMEM_PER_SM = 227 * 1024  # an H100 SM's shared memory a block may use
+
+
+def blast_instance(k: int) -> tuple[int, int, int]:
+    """(capacity, rows a lane, items a block) of the instance #8 launches
+    at K <= 106: the register solve at the next capacity of
+    :data:`BLAST_CAPACITIES` (capacity 0: the panels, K 65-106), and 8
+    items a block (a warp each) while two blocks of 8 fit an SM's shared
+    memory, else 4.  A copy of ``csrc/chol_solve_sample.cu``'s
+    ``instance_of``, which ``bpmf_chol_solve_instance`` reports on the
+    card."""
+    if not 1 <= k <= 106:
+        raise ValueError(f"K={k} is outside the kernel's gate (1..106)")
+    tv4 = -(-(k * (k + 1) // 2) // 4) * 4           # round4(K(K+1)/2)
+    kp = next((c for c in BLAST_CAPACITIES if c >= k), 0)
+    if kp:
+        rows = -(-kp // 32)
+        q = kp // 4
+        area = max(tv4, kp * kp - 8 * q * (q - 1))   # lcol_floats(kp)
+    else:
+        rows = 3 if k <= 96 else 4
+        area = tv4 + 8 * k                           # the panel buffer
+    return kp, rows, 8 if 2 * 4 * 8 * area + 2048 <= SMEM_PER_SM else 4
 
 
 @functools.cache

@@ -2,7 +2,7 @@
 checkouts of this repository on one card.
 
     python bpmf_tpu_torch/scripts/sweep_times.py [--root DIR] [--label NAME]
-        [--legs tall,ml1m,random,split,blast]
+        [--legs tall,ml1m,random,split,blast,hoisted]
 
 Imports ``bpmf_tpu_torch`` from DIR (default: the checkout this file lies
 in), so one copy of the script times any tree whose megakernel has the
@@ -38,8 +38,21 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
   the packed Gram matmul's batch-last systems) the same way; and #3 and #5
   at [6144, 4096], K=64 and K=32, on ``chip_smoke.py`` phase 5's random
   codes and frozen items, rows + cols;
-* ``blast``: #8 at B = 6144, K = 32 and 64, on ``chip_smoke.py`` phase
-  10's random SPD systems.
+* ``blast``: #8 at B = 6144 on ``chip_smoke.py`` phase 10's random SPD
+  systems at every K of :data:`BLAST_KS` (one K per instance class and
+  its edges), each beside the ``torch.linalg`` chain (Cholesky, two
+  triangular solves); then the chains whose solve is #8: the ml-1m synth
+  at K=32 on the bucketed route, the ml-25M synth at half scale (81,270 x
+  29,523, 6.25M ratings, seed 25) bucketed, and the ml-1m synth at K=96
+  (plain dense): ms/iter after a warm-up chunk, then #8 on each side's
+  systems of one more iteration;
+* ``hoisted``: #4 at [6144, 4096], K=64, rows + cols, on ``chip_smoke.py``
+  phase 5's random codes and frozen items, beside its library chain (the
+  f32 indicator's matmul with the packed operand and the rhs matmul, TF32
+  off) and, where the tree has ``hoisted_plan``, forced to one segment;
+  then the chembl synth at K=64 under ``BPMF_D8_PT=hoisted`` (#4 on both
+  sides: the proteins' most-rated with 61,253 ratings) as ``split`` runs
+  its chains.
 """
 
 from __future__ import annotations
@@ -72,10 +85,10 @@ def median_ms(fn, reps, warmup=2):
     return times[len(times) // 2]
 
 
-def chain(bpmf, cfg, train, test, warm, iters, k=32):
+def chain(bpmf, cfg, train, test, warm, iters, k=32, **kw):
     """A chain on the card after a warm chunk, and its ms/iter."""
-    s = bpmf(cfg(num_latent=k, burnin=2, nsims=warm + iters + 1), train, test,
-             out=open(os.devnull, "w"), device="cuda")
+    s = bpmf(cfg(num_latent=k, burnin=2, nsims=warm + iters + 1, **kw), train,
+             test, out=open(os.devnull, "w"), device="cuda")
     s.run_chunk(warm)
     t0 = time.perf_counter()
     s.run_chunk(iters)
@@ -229,20 +242,117 @@ def split_random(reps=25):
     return out
 
 
+# #8's K: each instance class of the kernel (register capacities 8-64,
+# the panels at three and four rows a lane) and its edges
+BLAST_KS = (8, 16, 32, 33, 48, 64, 65, 79, 96, 106)
+
+
 def blast_times(reps=25):
-    """#8 at B = 6144 on chip_smoke.py phase 10's random SPD systems."""
+    """#8 at B = 6144 on chip_smoke.py phase 10's random SPD systems (its
+    seeds), and the torch.linalg chain on the same systems."""
     import torch
 
     from bpmf_tpu_torch.ops import pallas_solve as ps
+    from bpmf_tpu_torch.ops.update import chol_solve_sample as linalg_solve
 
     out = {}
-    for k in (32, 64):
+    for k in BLAST_KS:
         g = torch.Generator(device="cuda").manual_seed(800 + k)
         w = torch.randn((6144, k, k), generator=g, device="cuda")
         prec = w @ w.mT / k + torch.eye(k, device="cuda")
         rhs, noise = torch.randn((2, 6144, k), generator=g, device="cuda")
         out[f"k{k}_ms"] = median_ms(
             lambda: ps.chol_solve_sample_pallas_blast(prec, rhs, noise), reps)
+        out[f"k{k}_linalg_ms"] = median_ms(
+            lambda: linalg_solve(prec, rhs, noise), reps)
+    return out
+
+
+def blast_chain(bpmf, cfg, train, test, k, warm, iters, reps=10, **kw):
+    """ms/iter of a chain whose solve is #8, then #8 on each side's
+    systems (precision, rhs, noise) of one more iteration, as the solvers
+    look the kernel up in its module at each call: solve_<side>_ms, sides
+    named movies and users."""
+    from bpmf_tpu_torch.ops import pallas_solve as ps
+
+    s, ms = chain(bpmf, cfg, train, test, warm, iters, k, **kw)
+    blast, seen = ps.chol_solve_sample_pallas_blast, []
+
+    def keep(*args):
+        seen.append(args)
+        return blast(*args)
+
+    ps.chol_solve_sample_pallas_blast = keep
+    try:
+        s.step()
+    finally:
+        ps.chol_solve_sample_pallas_blast = blast
+    assert len(seen) == 2, len(seen)
+    out = {"ms_per_iter": ms, "iterations": iters, "k": k,
+           "impl": {"movies": s.movies.impl, "users": s.users.impl}}
+    for side, args in zip(("movies", "users"), seen):
+        out[f"solve_{side}_ms"] = median_ms(lambda: blast(*args), reps)
+        out[f"solve_{side}_batch"] = int(args[0].shape[0])
+    return out
+
+
+def gram_library(codes, p_t, v_t, cs, cb, orientation):
+    """The split Gram's function (#3 with p_t None, #4) as a library
+    chain, its yardstick: the f32 indicator and centered codes, the packed
+    operand (built from v_t for #3), gram_t = p_t @ ind' and rhs_t =
+    v_t @ cv', two cuBLAS SGEMMs with TF32 off (restored after)."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    x = codes if orientation == "rows" else codes.t()
+    ind = (x != 0).float()
+    cv = cs * x.float() + cb * ind
+    p = d8.packed_tri_t(v_t) if p_t is None else p_t
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return p @ ind.t(), v_t @ cv.t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def hoisted_random(reps=25):
+    """#4 at [6144, 4096], K=64, rows + cols, on chip_smoke.py phase 5's
+    random codes and frozen items (its seeds, cs and cb): this tree's
+    plan, one segment where the tree has hoisted_plan, and the library
+    chain."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    out = {}
+    k = 64
+    for i, orientation in enumerate(("rows", "cols")):
+        g = torch.Generator(device="cuda").manual_seed(10 * k + i)
+        gc = torch.Generator(device="cuda").manual_seed(10 * k + i)
+        shape = (6144, 4096)
+        codes = torch.where(torch.rand(shape, generator=gc, device="cuda") < 0.04,
+                            torch.randint(1, 6, shape, generator=gc, device="cuda"),
+                            0).to(torch.int8)
+        frozen = shape[1] if orientation == "rows" else shape[0]
+        v_t = 0.5 * torch.randn((k, frozen), generator=g, device="cuda")
+        p_t = d8.packed_tri_t(v_t)
+        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+        out[f"{orientation}_ms"] = median_ms(lambda: fn(codes, p_t, v_t, 2.0, -7.2), reps)
+        out[f"{orientation}_library_ms"] = median_ms(
+            lambda: gram_library(codes, p_t, v_t, 2.0, -7.2, orientation), reps)
+        plan = getattr(d8, "hoisted_plan", None)
+        if plan is not None:
+            items = shape[0] if orientation == "rows" else shape[1]
+            out[f"{orientation}_segments"] = plan(items, frozen, p_t.shape[0], k).segments
+            d8.hoisted_plan = lambda items, frozen, t, k, *a, **kw: d8.SweepPlan(
+                1, frozen // d8.BLOCK_MULTIPLE, (), 0)
+            try:
+                out[f"{orientation}_one_segment_ms"] = median_ms(
+                    lambda: fn(codes, p_t, v_t, 2.0, -7.2), reps)
+            finally:
+                d8.hoisted_plan = plan
     return out
 
 
@@ -255,7 +365,8 @@ def main(argv=None):
     ap.add_argument("--tall-iters", type=int, default=10)
     ap.add_argument("--ml1m-iters", type=int, default=200)
     ap.add_argument("--legs", default="tall,ml1m,random",
-                    help="comma-separated: tall, ml1m, random, split, blast")
+                    help="comma-separated: tall, ml1m, random, split, blast, "
+                         "hoisted")
     a = ap.parse_args(argv)
     legs = a.legs.split(",")
     root = os.path.abspath(a.root)
@@ -307,7 +418,25 @@ def main(argv=None):
         split["random"] = split_random()
         out["split"] = split
     if "blast" in legs:
-        out["blast"] = blast_times()
+        blast = blast_times()
+        blast["ml1m_bucketed_k32"] = blast_chain(BPMF, Config, train, test, 32, 20,
+                                                 100, gram_impl="bucketed")
+        blast["ml1m_dense_k96"] = blast_chain(BPMF, Config, train, test, 96, 10, 50)
+        btrain, btest = synth_movielens(n_users=81_270, n_movies=29_523,
+                                        n_ratings=6_250_000, seed=25)
+        blast["ml25m_half_bucketed_k32"] = blast_chain(
+            BPMF, Config, btrain, btest, 32, 5, 20, gram_impl="bucketed")
+        del btrain, btest
+        out["blast"] = blast
+    if "hoisted" in legs:
+        hoisted = {"random_k64": hoisted_random()}
+        ctrain, ctest = synth_chembl()
+        os.environ["BPMF_D8_PT"] = "hoisted"   # read once, at the setup
+        try:
+            hoisted["chembl_k64"] = split_chain(BPMF, Config, ctrain, ctest, 64, 5, 20)
+        finally:
+            del os.environ["BPMF_D8_PT"]
+        out["hoisted"] = hoisted
     out["device"] = torch.cuda.get_device_name(0)
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
               [6144, 4096], K=32 (#2 also K=16), both orientations, random
               codes at ~4%, and skewed codes (one item with every frozen
               entry rated, three at 50%, the rest 1-4%); median times by
-              CUDA events; every launch repeated bitwise equal
+              CUDA events, beside the library chain (cuBLAS SGEMMs for the
+              Gram and rhs, tri_combine, torch.linalg); every launch
+              repeated bitwise equal
   4. main     BPMF on ml-1m synth (6040x3952, 1M ratings), K=32, f32, the
               schedule of bench.py: 4 chunks of 500 iterations through #1;
               rmse_avg must land within 0.01 of 0.5306 (the JAX package's
@@ -24,11 +26,13 @@ Phases, each printing JSON lines:
   5. kernel   the split pipeline's kernels against their plain versions at
               [6144, 4096], K=64 and K=32: the Gram with in-kernel products
               (#3) and with the hoisted operand (#4), both orientations,
-              random codes at ~4%; the solve with the shared (#5) and the
-              per-item prior (#6) on those Grams; then #3 on skewed codes
-              (phase 3's pattern, the frozen axis split over segments by
-              the degree) at K 16/32/64/79, rows + cols, int8 and int16,
-              three launches bitwise equal; and #5/#6/#7 on random systems
+              random codes at ~4%, each beside its library chain (two
+              cuBLAS SGEMMs), #4 twice bitwise equal; the solve with the
+              shared (#5) and the per-item prior (#6) on those Grams; then
+              #3 and #4 on skewed codes (phase 3's pattern, the frozen axis
+              split over segments by the degree) at K 16/32/48/64/79 (every
+              instance class of both), rows + cols, int8 and int16, three
+              launches bitwise equal; and #5/#6/#7 on random systems
               at every instance (K 8, 31, 32, 33, 64, 79; per-item to 74;
               grouped at 8/32/64), on the item-major and the batch-last
               Gram, two launches bitwise equal
@@ -47,11 +51,16 @@ Phases, each printing JSON lines:
   9. chembl   chembl synth (167000x360, 600k ratings) at K=64, 2 chunks of
               50 iterations: compounds on the hoisted Gram (#4), proteins
               on the in-kernel one (#3); finite, and 3 iterations equal to
-              the plain-version chain
+              the plain-version chain; then 2 chunks of 10 under
+              BPMF_D8_PT=hoisted (#4 on both sides, the 61,253-rated
+              protein over segments), the same checks
   10. kernel8 the batched solve (#8) against its plain version and the
               torch.linalg chain (Cholesky, two triangular solves) at
-              B = 6144, K in {16, 32, 64, 96, 106}, random SPD systems; each
-              item held to the float64 solution within SOLVE_BOUND
+              B = 6144, K in {1, 8, 16, 24, 32, 33, 48, 63, 64, 65, 79, 80,
+              96, 97, 106} (every instance class and its edges), random SPD
+              systems; each item held to the float64 solution within
+              SOLVE_BOUND; an indefinite item draws NaN where plain does,
+              its neighbours bitwise unchanged (B = 1001, K 32 and 96)
   11. bucketed ml-1m synth, K=32, gram_impl="bucketed", the schedule of
               phase 4: rmse_avg within 0.01 of 0.5306; #8 twice per
               iteration, no dense8 kernel (the movies' split buckets among
@@ -575,6 +584,7 @@ def main():
     from bpmf_tpu_torch.ops.update import chol_solve_sample as linalg_solve
     from bpmf_tpu_torch.parallel.spmd import _combine_prior_rhs
     from bpmf_tpu_torch.sampler import BPMF, HostDraws
+    from bpmf_tpu_torch.scripts.sweep_times import gram_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -629,7 +639,30 @@ def main():
         want = plain()
         torch.testing.assert_close(got, want, **KERNEL_TOL)
         return {"max_abs_err": float((got - want).abs().max()),
-                "ms": median_ms(call, reps), "plain_ms": median_ms(plain, reps)}
+                "ms": median_ms(call, reps), "plain_ms": median_ms(plain, reps),
+                "library_ms": median_ms(lambda: sweep_library(
+                    args, orientation, p_t, layout, cs), reps)}
+
+    def sweep_library(args, orientation, p_t, layout, cs=cs):
+        """The megakernel's function (#1, #2) as a library chain, its
+        yardstick: the packed operand (built from v_t for #1, p_t's valid
+        rows for #2) times the f32 indicator and the rhs by cuBLAS SGEMMs
+        (TF32 off), the systems by ops.pallas_solve.tri_combine, then
+        torch.linalg Cholesky and two triangular solves."""
+        codes, v_t, lam, prior_rhs, noise_t = args
+        k = v_t.shape[0]
+        x = codes if orientation == "rows" else codes.t()
+        ind = (x != 0).float()
+        cv = cs * x.float() + cb * ind
+        if p_t is None:
+            p = d8.packed_tri_t(v_t)[:k * (k + 1) // 2]
+        else:
+            p = p_t[torch.as_tensor(d8._layout_rows(k, layout)[0], device=p_t.device)]
+        chol = torch.linalg.cholesky_ex(ps.tri_combine(p @ ind.t(), lam, alpha)).L
+        y = torch.linalg.solve_triangular(
+            chol, (v_t @ cv.t() + prior_rhs).t()[..., None], upper=False)
+        return torch.linalg.solve_triangular(
+            chol.mT, y + noise_t.t()[..., None], upper=True)[..., 0].t()
 
     def sweep_work(args, p_t=None, layout="aligned"):
         """(bytes, flops) of one megakernel launch: the codes, v, p's valid
@@ -648,7 +681,7 @@ def main():
     # the kernels line's rows: random codes, K=32, rows + cols (one
     # iteration runs both orientations)
     result = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                     "nbytes": 0, "flops": 0}
+                     "library_ms": 0.0, "nbytes": 0, "flops": 0}
               for name in ("inkernel", "tight", "aligned")}
 
     def sweep_record(name, args, orientation, inputs, k=K, headline=False,
@@ -672,10 +705,11 @@ def main():
         if where is None:
             where = f"k{k}" if inputs == "random codes" else inputs.replace(" ", "_")
         res[f"bound_ms_{where}_{orientation}"] = bound(nbytes, flops)["bound_ms"]
-        for key in ("ms", "plain_ms"):
+        for key in ("ms", "plain_ms", "library_ms"):
             res[f"{key}_{where}_{orientation}"] = r[key]
         if headline:
             for key, v in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]),
+                           ("library_ms", r["library_ms"]),
                            ("nbytes", nbytes), ("flops", flops)):
                 res[key] += v
 
@@ -819,9 +853,11 @@ def main():
             x = codes if orientation == "rows" else codes.t()
             info = {"side": side.name, "items": x.shape[0],
                     "most_rated": int((x != 0).sum(1).max())}
-            if p_t is None:
-                info["segments"] = d8.sweep_plan(x.shape[0], x.shape[1], k, deg,
-                                                d8._sm_count(codes.device)).segments
+            info["segments"] = (
+                d8.sweep_plan(x.shape[0], x.shape[1], k, deg, d8._sm_count(codes.device))
+                if p_t is None else
+                d8.hoisted_plan(x.shape[0], x.shape[1], p_t.shape[0], k, deg,
+                                d8._sm_count(codes.device))).segments
             nnz = int((codes != 0).sum())
             g_bytes = codes.numel() * codes.element_size() + 4 * (
                 v_t.numel() + got[0].numel() + got[1].numel()
@@ -833,6 +869,8 @@ def main():
                    lambda: d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs_c, cb_c,
                                                   orientation),
                    inputs=inputs, shape=codes.shape, work=(g_bytes, g_flops),
+                   library_fn=lambda: gram_library(codes, p_t, v_t, cs_c, cb_c,
+                                                   orientation),
                    **info)
             aux = sampler._aux[side.name]
             lt, hp, gr = aux.prior_tri_t, state.hp, sampler.grouped
@@ -867,13 +905,21 @@ def main():
                    d8.dense8_gram_rhs_ref(codes, None, v_t, cs, cb, orientation),
                    lambda: fn(codes, None, v_t, cs, cb),
                    lambda: d8.dense8_gram_rhs_ref(codes, None, v_t, cs, cb, orientation),
-                   work=(g_bytes, g_flops))
+                   work=(g_bytes, g_flops),
+                   library_fn=lambda: gram_library(codes, None, v_t, cs, cb, orientation))
             p_t = d8.packed_tri_t(v_t)
-            record("gram_hoisted", k, orientation, fn(codes, p_t, v_t, cs, cb),
+            gram4 = fn(codes, p_t, v_t, cs, cb)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(gram4, fn(codes, p_t, v_t, cs, cb)))
+            record("gram_hoisted", k, orientation, gram4,
                    d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation),
                    lambda: fn(codes, p_t, v_t, cs, cb),
                    lambda: d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation),
-                   work=(g_bytes + 4 * p_t.numel(), g_flops))
+                   work=(g_bytes + 4 * p_t.numel(), g_flops),
+                   library_fn=lambda: gram_library(codes, p_t, v_t, cs, cb, orientation),
+                   segments=d8.hoisted_plan(items, frozen, p_t.shape[0], k, None,
+                                            d8._sm_count(codes.device)).segments,
+                   bitwise_repeated=True)
             gram = gram3[0]
             w = torch.randn((k, k), generator=g, device="cuda")
             lam = w @ w.T / k + torch.eye(k, device="cuda")
@@ -899,10 +945,12 @@ def main():
                        items=items)
     del codes, wb, lam_tri
 
-    # #3 on skewed codes, the frozen axis split over S segments by the
-    # most-rated item's degree (every frozen entry): against plain at
-    # KERNEL_TOL, three launches bitwise equal
-    for k in (16, 32, 64, 79):
+    # #3 and #4 on skewed codes, the frozen axis split over S segments by
+    # the most-rated item's degree (every frozen entry), at every instance
+    # class (#3: 16/32/48/64 register rows, 79 tiles; #4: 2, 5, 10, 17, 26
+    # float4 sums a lane): against plain at KERNEL_TOL, three launches
+    # bitwise equal
+    for k in (16, 32, 48, 64, 79):
         for int16 in (False, True):
             for i, orientation in enumerate(("rows", "cols")):
                 codes = skewed_codes(900 + k + 2 * i + int16, orientation, int16)
@@ -913,27 +961,34 @@ def main():
                 fn = (d8.dense8_gram_rhs_rows if orientation == "rows"
                       else d8.dense8_gram_rhs_cols)
                 cs_g = 2 * CS16 if int16 else cs
-                got = [fn(codes, None, v_t, cs_g, cb, max_degree=frozen)
-                       for _ in range(3)]
-                torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for again in got[1:]
-                           for a, b in zip(got[0], again))
-                want = d8.dense8_gram_rhs_ref(codes, None, v_t, cs_g, cb, orientation)
-                for a, b in zip(got[0], want):
-                    torch.testing.assert_close(a, b, **KERNEL_TOL)
-                err = max(float((a - b).abs().max()) for a, b in zip(got[0], want))
-                split["gram_inkernel"]["max_abs_err"] = max(
-                    split["gram_inkernel"]["max_abs_err"], err)
-                emit({"phase": "kernel", "kernel": "gram_inkernel",
-                      "inputs": "skewed codes", "orientation": orientation,
-                      "codes": str(codes.dtype), "k": k,
-                      "segments": d8.sweep_plan(items, frozen, k, frozen,
-                                               d8._sm_count(codes.device)).segments,
-                      "tolerance": KERNEL_TOL, "max_abs_err": err,
-                      "bitwise_repeated": True,
-                      "ms": median_ms(lambda: fn(codes, None, v_t, cs_g, cb,
-                                                 max_degree=frozen), 5, 1),
-                      **tag})
+                for name, p_t in (("gram_inkernel", None),
+                                  ("gram_hoisted", d8.packed_tri_t(v_t))):
+                    got = [fn(codes, p_t, v_t, cs_g, cb, max_degree=frozen)
+                           for _ in range(3)]
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for again in got[1:]
+                               for a, b in zip(got[0], again))
+                    want = d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs_g, cb,
+                                                  orientation)
+                    for a, b in zip(got[0], want):
+                        torch.testing.assert_close(a, b, **KERNEL_TOL)
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got[0], want))
+                    split[name]["max_abs_err"] = max(split[name]["max_abs_err"], err)
+                    plan = (d8.sweep_plan(items, frozen, k, frozen, d8._sm_count(codes.device))
+                            if p_t is None else
+                            d8.hoisted_plan(items, frozen, p_t.shape[0], k, frozen,
+                                            d8._sm_count(codes.device)))
+                    assert plan.segments > 1, plan
+                    emit({"phase": "kernel", "kernel": name,
+                          "inputs": "skewed codes", "orientation": orientation,
+                          "codes": str(codes.dtype), "k": k,
+                          "segments": plan.segments,
+                          "tolerance": KERNEL_TOL, "max_abs_err": err,
+                          "bitwise_repeated": True,
+                          "ms": median_ms(lambda: fn(codes, p_t, v_t, cs_g, cb,
+                                                     max_degree=frozen), 5, 1),
+                          **tag})
     del codes, got, want
     # #5/#6/#7 at every instance (K 8, 31 on capacity 32, 32, 33 on
     # capacity 48, 64; 79 on the panels; the per-item prior to its gate
@@ -1071,6 +1126,29 @@ def main():
           **per_iter_stats(sampler, chunk_s, c_iters), "setup_s": setup_s, **tag})
     chain_kernels(sampler, "chembl_chain")
     del sampler
+    # the same chain with BPMF_D8_PT=hoisted: the proteins on #4 too (the
+    # most-rated protein's 61,253 ratings over the hoisted plan's segments)
+    h_iters = 10
+    with env(BPMF_D8_PT="hoisted"):
+        sampler, mets, chunk_s, setup_s, n = drive(chembl, counts, 2, h_iters)
+    assert (sampler.users.route, sampler.movies.route) == ("hoisted", "hoisted")
+    assert n == launches(gram_hoisted=4 * h_iters, solve_shared=4 * h_iters), n
+    assert_finite(mets)
+    with env(BPMF_D8_PT="hoisted"):
+        err = check_first_iterations(chembl, mets[0], counts)
+    for key in ("gram_hoisted", "solve_shared"):
+        total[key] += n[key]
+    emit({"phase": "chembl", "dataset": "chembl synth", "k": 64,
+          "knob": {"BPMF_D8_PT": "hoisted"},
+          "routes": {"compounds": sampler.users.route,
+                     "proteins": sampler.movies.route},
+          "iterations": 2 * h_iters, "launches": n,
+          "rmse_avg": float(mets[-1].rmse_avg[-1]),
+          "rmse": float(mets[-1].rmse[-1]),
+          "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL,
+          **per_iter_stats(sampler, chunk_s, h_iters), "setup_s": setup_s, **tag})
+    chain_kernels(sampler, "chembl_hoisted_chain")
+    del sampler
 
     # 10. kernel8: the batched solve (#8) against plain and torch.linalg
     blast = ps.chol_solve_sample_pallas_blast
@@ -1118,13 +1196,35 @@ def main():
                                     most_rated=int(side.degrees.max())))
         return out
 
-    for k in (16, 32, 64, 96, 106):
+    # every instance class of #8 and its edges: the register solve at
+    # capacity 8, 16, 24, 32, 48, 64, the panels at 3 and 4 rows a lane
+    for k in (1, 8, 16, 24, 32, 33, 48, 63, 64, 65, 79, 80, 96, 97, 106):
         g = torch.Generator(device="cuda").manual_seed(800 + k)
         w = torch.randn((6144, k, k), generator=g, device="cuda")
         prec = w @ w.mT / k + torch.eye(k, device="cuda")
         rhs, noise = torch.randn((2, 6144, k), generator=g, device="cuda")
-        blast_record(prec, rhs, noise, "random SPD")
-    del w, prec
+        blast_record(prec, rhs, noise, "random SPD", instance=ps.blast_instance(k))
+    # an indefinite system draws NaN, as the plain version does, and leaves
+    # its neighbours bit for bit as they are; B = 1001 leaves the last block
+    # ragged
+    for k in (32, 96):
+        g = torch.Generator(device="cuda").manual_seed(870 + k)
+        w = torch.randn((1001, k, k), generator=g, device="cuda")
+        prec = w @ w.mT / k + torch.eye(k, device="cuda")
+        rhs, noise = torch.randn((2, 1001, k), generator=g, device="cuda")
+        bad = prec.clone()
+        bad[500] = -bad[500]
+        got, good = blast(bad, rhs, noise), blast(prec, rhs, noise)
+        want = blast_ref(bad, rhs, noise)
+        keep = torch.arange(1001, device="cuda") != 500
+        assert torch.isnan(got[500]).all() and torch.isnan(want[500]).all()
+        assert torch.equal(got[keep], good[keep])
+        assert torch.isfinite(good).all()
+        emit({"phase": "kernel", "kernel": "chol_solve_sample",
+              "inputs": "random SPD, item 500 negative definite", "batch": 1001,
+              "k": k, "nan_where_plain_nan": True, "others_bitwise_equal": True,
+              **tag})
+    del w, prec, bad
 
     # 11. the bucketed route on ml-1m synth, anchored to the JAX rmse_avg
     sampler, mets, chunk_s, setup_s, n = drive(ml1m(K, gram_impl="bucketed"),

@@ -426,6 +426,65 @@ def test_gram_kernel_skewed_segments_on_card(cuda, k, orientation, code_dtype,
     assert d8.gram_launches["inkernel"] == launches + 7
 
 
+def _forced_hoisted_plan(segments):
+    """A substitute for ``ops.dense8.hoisted_plan`` that splits the frozen
+    axis into ``segments`` runs of whole tiles."""
+    def plan(items, frozen, t, k, max_degree=None, sms=132):
+        tiles = frozen // d8.BLOCK_MULTIPLE
+        per = -(-tiles // segments)
+        s = -(-tiles // per)
+        if s == 1:
+            return d8.SweepPlan(1, tiles, (), 0)
+        return d8.SweepPlan(s, per, (s, items, t + -(-k // 4) * 4),
+                            items // d8.ITEMS_PER_BLOCK)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 32, 48, 64, 79])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+@pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+def test_hoisted_gram_skewed_segments_on_card(cuda, k, orientation, code_dtype,
+                                              monkeypatch):
+    """#4 at every instance class (2, 5, 10, 17 and 26 float4 sums a lane)
+    on skewed codes (one item with every frozen entry rated, three at
+    half), split over S segments of the frozen axis: S = 1, the wrapper's
+    own S and S = 8 against the plain version at 1e-3 (f32 sums in another
+    order), the same across S, and three launches bitwise equal (the
+    arrival counters reset, the partials summed in one order)."""
+    cs = CS if code_dtype == "int8" else CS16
+    codes, v_t = (torch.from_numpy(a).to(cuda) for a in
+                  _skewed_inputs(1024, 4096, k, orientation, seed=k + 5,
+                                 code_dtype=code_dtype)[:2])
+    v_t = 0.2 * v_t  # keeps sums of 4096 products near 1
+    p_t = d8.packed_tri_t(v_t)
+    fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+    want = d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, CB, orientation)
+
+    def call():
+        return fn(codes, p_t, v_t, cs, CB, max_degree=4096)
+
+    def close(got, ref):
+        for g, w in zip(got, ref):
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+    launches = d8.gram_launches["hoisted"]
+    real = d8.hoisted_plan
+    monkeypatch.setattr(d8, "hoisted_plan", _forced_hoisted_plan(1))
+    one = call()
+    close(one, want)
+    for plan in (real, _forced_hoisted_plan(8)):
+        monkeypatch.setattr(d8, "hoisted_plan", plan)
+        assert plan(1024, 4096, p_t.shape[0], k, 4096).segments > 1
+        got = [call() for _ in range(3)]
+        torch.cuda.synchronize()
+        close(got[0], want)
+        close(got[0], one)
+        for again in got[1:]:
+            assert all(torch.equal(g, a) for g, a in zip(got[0], again))
+    assert d8.gram_launches["hoisted"] == launches + 7
+
+
 def _solve_inputs(k, b, seed, grouped=False):
     """A tight packed Gram from random rated rows (NaN in its padding rows,
     which must not be read), a shared and a per-item SPD prior (aligned
@@ -651,19 +710,47 @@ def test_blast_beyond_gate_runs_vpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [16, 32, 64, 96, 106])
+@pytest.mark.parametrize("k", [1, 8, 16, 31, 32, 33, 63, 64, 65, 79, 80, 96, 106])
 def test_blast_kernel_matches_plain_on_card(cuda, k):
-    """Kernel #8 against its plain version on random SPD systems, upper
-    triangle NaN: another factorization order, 1e-3."""
-    a, rhs, noise = spd_systems(700, k, k, cuda)
+    """Kernel #8 at every instance class and its edges (the register solve
+    at capacities 8-64, the panels at three and four rows a lane) against
+    its plain version on random SPD systems, upper triangle NaN, at 1e-3
+    (another factorization order); B = 701 leaves the last block ragged at
+    8 and at 4 items a block; item 7 negative definite draws NaN as in the
+    plain version, every other item finite and bitwise as without it; two
+    launches bitwise equal."""
+    a, rhs, noise = spd_systems(701, k, k + 40, cuda)
+    bad = a.clone()
+    bad[7] = -bad[7]
     launches = ps.solve_launches["blast"]
-    got = BLAST(a, rhs, noise)
+    got, again, good = BLAST(bad, rhs, noise), BLAST(bad, rhs, noise), BLAST(a, rhs, noise)
     torch.cuda.synchronize()
-    assert ps.solve_launches["blast"] == launches + 1
-    want = chol_solve_sample_pallas_blast_ref(torch.tril(torch.nan_to_num(a)),
+    assert ps.solve_launches["blast"] == launches + 3
+    assert torch.equal(torch.nan_to_num(got, 1.0), torch.nan_to_num(again, 1.0))
+    want = chol_solve_sample_pallas_blast_ref(torch.tril(torch.nan_to_num(bad)),
                                               rhs, noise)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    keep = torch.arange(701, device=cuda) != 7
+    assert torch.isnan(got[7]).all() and torch.isnan(want[7]).all()
+    assert torch.isfinite(good).all() and torch.equal(got[keep], good[keep])
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_blast_instance_on_card(cuda):
+    """The instance the kernel launches at each K of its gate is the one
+    ops.pallas_solve.blast_instance names."""
+    import ctypes
+
+    from bpmf_tpu_torch.ops._build import load
+
+    fn = load("chol_solve_sample").bpmf_chol_solve_instance
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    for k in range(1, 107):
+        assert fn(k, ctypes.addressof(out)) == 0
+        assert tuple(out) == ps.blast_instance(k), k
+    assert fn(107, ctypes.addressof(out)) != 0
 
 
 @pytest.mark.cuda
