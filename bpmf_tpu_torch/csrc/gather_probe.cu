@@ -4,21 +4,52 @@
 //   out[r, k] = sum_w table[idx[r, w], k],   idx [R, W] int32, table [NV, K] f32
 //
 // the neighbour gather of the bucketed route's Gram, reduced to its memory
-// access.  They replace the three TPU micro-probes of scripts/gather_probe.py:
+// access.  They replace the three TPU micro-probes of scripts/gather_probe.py.
+//
+// What bounds them on an H100: bytes.  At the probe's shapes (R = W = 512,
+// NV = 32768, K = 32) the function must read idx (1 MiB) and the table
+// (4 MiB, nearly every row is touched) and write out (64 KiB): 5.3 MB,
+// 0.0016 ms at 3.35 TB/s; the adds (8.4 M) are far below it.  But each
+// launch gathers R*W rows (33.5 MB at those shapes), and the table stays in
+// the 50 MB L2 across a launch, so what a design meets is L2's bandwidth
+// and latency: enough 16-byte loads in flight on every SM.
 //
 //   gather_rows_kernel   <- :66 kernel_a (call :75): the whole table in VMEM,
-//                           take_along_axis over sublanes, flat indices.
-//                           One warp per item row r, lane = latent dim k: a
-//                           loop over w reads one K-float row per neighbour
-//                           (128 bytes at K=32, one coalesced transaction).
+//                           take_along_axis over sublanes.  Each item row's
+//                           W neighbours are split over `split` warps (the
+//                           plan, gather_probe.probe_plan_rows, picks it so
+//                           that R*split warps fill the 132 SMs: 16 at
+//                           R = 512, 1 at R = 8192).  A table row is SPAN
+//                           lanes reading 16-byte pieces (K = 32: a quarter
+//                           warp a 128-byte row, 4 rows a warp instruction,
+//                           8 rows in flight a lane); the warp's indices
+//                           come 32 at a time, one a lane, by shuffle.  The
+//                           partials of a warp's sub-rows add by a
+//                           butterfly, the split warps' through shared
+//                           memory in warp order: no atomics, the same bits
+//                           every launch.  K % 4 != 0 or a table off
+//                           16-byte alignment takes the same kernel with
+//                           4-byte pieces.
 //   gather_lanes_kernel  <- :87 kernel_b (call :95): the transposed table
-//                           [K, NV], gather along lanes.  One warp per r,
-//                           lanes take neighbours w: each lane reads
-//                           table_t[k, idx] for every k (4-byte scattered
-//                           loads, 32 transactions per 32 floats), then a
-//                           warp-shuffle sum per k.  Written this way on
-//                           purpose, slow as it is: that is the strategy
-//                           the probe measures.
+//                           [K, NV] in VMEM, gather along lanes.  A block
+//                           stages one k-row table_t[k, :] (128 KB at
+//                           NV = 32768) into shared memory with 16-byte
+//                           cp.async (a 4-byte head and tail where the row
+//                           is off 16-byte alignment), then its warps walk
+//                           a group of item rows: lanes take neighbours w,
+//                           read idx as int4 (4 neighbours a lane) and look
+//                           each value up in shared memory; one warp-shuffle
+//                           sum per (r, k).  The grid is K x row groups
+//                           (the plan, probe_plan_lanes, sizes the groups
+//                           to one wave).  What it reads from L2 is the
+//                           staged rows and idx once per k: K*R*W*4 bytes,
+//                           coalesced, no scattered global load.  Past
+//                           about 58,000 floats a k-row does not fit the
+//                           232,448 bytes a block may have: the block then
+//                           stages the row chunk by chunk, each chunk adds
+//                           only the indices that fall in it, and out[r, k]
+//                           takes the chunks' sums in chunk order (the
+//                           thread that wrote it adds the next one).
 //   gather_copy_kernel   <- :107 kernel_c (call :128): one grid step per r,
 //                           W row DMAs from HBM into a [W, K] VMEM scratch on
 //                           one semaphore, then one sum.  One block per r:
@@ -26,13 +57,6 @@
 //                           dynamic shared memory, cp.async.wait_all and a
 //                           barrier, then the sum over W from shared memory.
 //
-// What bounds them on an H100: bytes.  At the probe's shapes (R = W = 512,
-// NV = 32768, K = 32) the function must read idx (1 MiB) and the table
-// (4 MiB, nearly every row is touched) and write out (64 KiB): 5.3 MB,
-// 0.0016 ms at 3.35 TB/s; the adds (8.4 M) are far below it.  But each
-// launch gathers 33.5 MB of rows, and the table stays in the 50 MB L2
-// across a launch, so L2 bandwidth, not HBM, is what A and C meet.  B
-// moves the same bytes in 4-byte pieces and is bound by its load count.
 // The indices must lie in [0, NV): the kernels do not check them, as the
 // TPU kernels do not.
 
@@ -42,8 +66,11 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 4;  // A and B: one warp per item row
+constexpr int kRowsWarps = 16;  // A: warps a block
+constexpr int kRowsThreads = kWarp * kRowsWarps;
+constexpr int kLanesThreads = 1024;  // B
 constexpr int kCopyThreads = 256;  // C
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -52,71 +79,153 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// A: lane k of warp r sums table[idx[r, w], k] over w.  The warp loads 32
-// indices at a time (one per lane) and broadcasts each by shuffle.
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-gather_rows_kernel(const int32_t* __restrict__ idx,    // [R, W]
-                   const float* __restrict__ table,    // [NV, K]
-                   int r_rows, int w_cols, int k,
-                   float* __restrict__ out)            // [R, K]
-{
-  const int lane = threadIdx.x % kWarp;
-  const int64_t r = int64_t(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (r >= r_rows) return;
-  const int32_t* row_idx = idx + r * w_cols;
-  for (int k0 = 0; k0 < k; k0 += kWarp) {
-    const int kk = k0 + lane;
-    float acc = 0.0f;
-    for (int w0 = 0; w0 < w_cols; w0 += kWarp) {
-      const int n = min(kWarp, w_cols - w0);
-      const int32_t mine = lane < n ? row_idx[w0 + lane] : 0;
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        const int64_t v = __shfl_sync(0xffffffffu, mine, j);
-        if (kk < k) acc += table[v * k + kk];
-      }
-    }
-    if (kk < k) out[r * k + kk] = acc;
-  }
+__device__ __forceinline__ void add(float& a, float b) { a += b; }
+__device__ __forceinline__ void add(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
-
-// B: lane j of warp r takes neighbours w = j, j + 32, ...; for each k it
-// reads table_t[k, idx] and keeps a partial per k in registers (32 k at a
-// time); a butterfly sum per k, and lane k writes out[r, k].
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-gather_lanes_kernel(const int32_t* __restrict__ idx,    // [R, W]
-                    const float* __restrict__ table_t,  // [K, NV]
-                    int r_rows, int w_cols, int nv, int k,
-                    float* __restrict__ out)            // [R, K]
-{
-  const int lane = threadIdx.x % kWarp;
-  const int64_t r = int64_t(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (r >= r_rows) return;
-  const int32_t* row_idx = idx + r * w_cols;
-  for (int k0 = 0; k0 < k; k0 += kWarp) {
-    float acc[kWarp];
-#pragma unroll
-    for (int j = 0; j < kWarp; ++j) acc[j] = 0.0f;
-    for (int w = lane; w < w_cols; w += kWarp) {
-      const int64_t v = row_idx[w];
-#pragma unroll
-      for (int j = 0; j < kWarp; ++j)
-        if (k0 + j < k) acc[j] += table_t[int64_t(k0 + j) * nv + v];
-    }
-    float mine = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kWarp; ++j) {
-      const float s = warp_sum(acc[j]);
-      if (lane == j) mine = s;
-    }
-    if (k0 + lane < k) out[r * k + k0 + lane] = mine;
-  }
+__device__ __forceinline__ float shfl_xor(float x, int off) {
+  return __shfl_xor_sync(0xffffffffu, x, off);
+}
+__device__ __forceinline__ float4 shfl_xor(float4 x, int off) {
+  return make_float4(shfl_xor(x.x, off), shfl_xor(x.y, off),
+                     shfl_xor(x.z, off), shfl_xor(x.w, off));
+}
+template <typename V> __device__ __forceinline__ V zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
+}
+
+// A: V is the piece a lane reads (float4, or float for K % 4 != 0 or a
+// table off 16-byte alignment), SPAN the lanes of one table row (the
+// pieces of a row rounded up to a power of two, at most 32), so a warp
+// instruction reads kWarp / SPAN rows.  Warp q of the block serves item row
+// blockIdx.x * (kRowsWarps / split) + q / split and its neighbours
+// [s * per_warp, (s + 1) * per_warp), s = q % split.
+template <typename V, int SPAN>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+gather_rows_kernel(const int32_t* __restrict__ idx,    // [R, W]
+                   const float* __restrict__ table,    // [NV, K]
+                   int r_rows, int w_cols, int k, int split, int per_warp,
+                   float* __restrict__ out)            // [R, K]
+{
+  extern __shared__ __align__(16) float part[];  // [kRowsWarps, K], split > 1
+  constexpr int kE = sizeof(V) / sizeof(float);
+  constexpr int kStride = kWarp / SPAN;  // table rows a warp instruction
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int rows = kRowsWarps / split;
+  const int64_t r = int64_t(blockIdx.x) * rows + warp / split;
+  const bool live = r < r_rows;
+  const int sub = lane / SPAN;
+  const int pieces = k / kE;
+  const int w_lo = min(w_cols, (warp % split) * per_warp);
+  const int w_hi = min(w_cols, w_lo + per_warp);
+  const V* table_v = reinterpret_cast<const V*>(table);
+  const int32_t* row_idx = idx + (live ? r : 0) * w_cols;
+  V* dst = split > 1 ? reinterpret_cast<V*>(part + warp * k)
+                     : reinterpret_cast<V*>(out + (live ? r : 0) * k);
+  for (int p0 = 0; p0 < pieces; p0 += SPAN) {
+    const int p = p0 + lane % SPAN;
+    V acc = zero<V>();
+    if (live) {
+      for (int wb = w_lo; wb < w_hi; wb += kWarp) {
+        const int n = min(kWarp, w_hi - wb);
+        const int32_t mine = lane < n ? __ldg(row_idx + wb + lane) : 0;
+        // SPAN instructions of kStride rows each: up to 8 pieces in flight
+#pragma unroll 8
+        for (int t = 0; t < SPAN; ++t) {
+          const int j = sub + t * kStride;
+          const int64_t v = __shfl_sync(0xffffffffu, mine, j);
+          if (j < n && p < pieces) add(acc, __ldg(table_v + v * pieces + p));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = SPAN; off < kWarp; off *= 2) add(acc, shfl_xor(acc, off));
+    if (live && sub == 0 && p < pieces) dst[p] = acc;
+  }
+  if (split > 1) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows * k; t += kRowsThreads) {
+      const int i = t / k, kk = t - i * k;
+      const int64_t rr = int64_t(blockIdx.x) * rows + i;
+      if (rr >= r_rows) break;
+      float s = 0.0f;
+      for (int q = 0; q < split; ++q) s += part[(i * split + q) * k + kk];
+      out[rr * k + kk] = s;
+    }
+  }
+}
+
+__device__ __forceinline__ float look(const float* vals, int32_t d, int n) {
+  return static_cast<unsigned>(d) < static_cast<unsigned>(n) ? vals[d] : 0.0f;
+}
+
+// B: block (k, g) holds chunk [c0, c0 + n) of table_t[k, :] in shared
+// memory, chunk after chunk, and sums out[r, k] for the rows
+// [g * rows_per_block, (g + 1) * rows_per_block), a warp a row at a time.
+__global__ void __launch_bounds__(kLanesThreads)
+gather_lanes_kernel(const int32_t* __restrict__ idx,    // [R, W]
+                    const float* __restrict__ table_t,  // [K, NV]
+                    int r_rows, int w_cols, int nv, int k, int rows_per_block,
+                    int chunk, float* __restrict__ out)  // [R, K]
+{
+  extern __shared__ __align__(16) float stage[];  // chunk + 3 floats
+  constexpr int kWarps = kLanesThreads / kWarp;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int kk = blockIdx.x;
+  const int64_t r0 = int64_t(blockIdx.y) * rows_per_block;
+  const int64_t r1 = min(int64_t(r_rows), r0 + rows_per_block);
+  const bool quads =
+      w_cols % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  for (int c0 = 0; c0 < nv; c0 += chunk) {
+    const int n = min(chunk, nv - c0);
+    const float* src = table_t + int64_t(kk) * nv + c0;
+    // vals[j] = src[j], placed so that the 16-byte copies land aligned
+    const int a = int((reinterpret_cast<uintptr_t>(src) / 4) % 4);
+    const int head = min(n, (4 - a) % 4);
+    const int quads_n = (n - head) / 4;
+    float* vals = stage + a;
+    __syncthreads();  // the last chunk's lookups are done
+    for (int t = threadIdx.x; t < head; t += kLanesThreads) vals[t] = src[t];
+    for (int q = threadIdx.x; q < quads_n; q += kLanesThreads)
+      cp_async16(vals + head + 4 * q, src + head + 4 * q);
+    for (int t = head + 4 * quads_n + threadIdx.x; t < n; t += kLanesThreads)
+      vals[t] = src[t];
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+    for (int64_t r = r0 + warp; r < r1; r += kWarps) {
+      const int32_t* row = idx + r * w_cols;
+      float acc = 0.0f;
+      if (quads) {
+        const int4* row4 = reinterpret_cast<const int4*>(row);
+#pragma unroll 4
+        for (int q = lane; q < w_cols / 4; q += kWarp) {
+          const int4 v = __ldg(row4 + q);
+          acc += look(vals, v.x - c0, n);
+          acc += look(vals, v.y - c0, n);
+          acc += look(vals, v.z - c0, n);
+          acc += look(vals, v.w - c0, n);
+        }
+      } else {
+#pragma unroll 8
+        for (int w = lane; w < w_cols; w += kWarp)
+          acc += look(vals, __ldg(row + w) - c0, n);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        float* o = out + r * k + kk;
+        *o = c0 == 0 ? acc : *o + acc;
+      }
+    }
+  }
 }
 
 // C: block r copies its W rows into shared memory [W, K] (16-byte pieces,
@@ -158,32 +267,90 @@ gather_copy_kernel(const int32_t* __restrict__ idx,    // [R, W]
   }
 }
 
+// Raises the kernel's dynamic shared memory to `smem` (above 48 KB only
+// after the attribute is raised; otherwise the launch is refused and only
+// its return code says so).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, long long smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename V, int SPAN>
+int launch_rows(const int32_t* idx, const float* table, int r_rows, int w_cols,
+                int k, int split, int per_warp, float* out,
+                cudaStream_t stream) {
+  // the split warps' [kRowsWarps, K] partials
+  const long long smem = split > 1 ? (long long)sizeof(float) * kRowsWarps * k : 0;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gather_rows_kernel<V, SPAN>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = kRowsWarps / split;
+  gather_rows_kernel<V, SPAN><<<(r_rows + rows - 1) / rows, kRowsThreads,
+                                (size_t)smem, stream>>>(
+      idx, table, r_rows, w_cols, k, split, per_warp, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int dispatch_rows(const int32_t* idx, const float* table, int r_rows,
+                  int w_cols, int k, int split, int per_warp, float* out,
+                  cudaStream_t stream) {
+  const int pieces = k / (int)(sizeof(V) / sizeof(float));
+  int span = 1;
+  while (span < pieces && span < kWarp) span *= 2;
+  switch (span) {
+    case 1: return launch_rows<V, 1>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+    case 2: return launch_rows<V, 2>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+    case 4: return launch_rows<V, 4>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+    case 8: return launch_rows<V, 8>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+    case 16: return launch_rows<V, 16>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+    default: return launch_rows<V, 32>(idx, table, r_rows, w_cols, k, split, per_warp, out, stream);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  idx is [R, W] int32, the
 // tables and out row-major float32.  Each launches on `stream` and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
+// The plans (split, per_warp, rows_per_block, chunk) come from
+// bpmf_tpu_torch/scripts/gather_probe.py; each kernel sizes its shared
+// memory from them.
 extern "C" int bpmf_gather_rows(const void* idx, const void* table, int r_rows,
-                                int w_cols, int k, void* out, void* stream) {
-  if (r_rows < 1 || w_cols < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (r_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  gather_rows_kernel<<<blocks, kWarp * kRowsPerBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const float*>(table),
-      r_rows, w_cols, k, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+                                int w_cols, int k, int split, int per_warp,
+                                void* out, void* stream) {
+  if (r_rows < 1 || w_cols < 1 || k < 1 || split < 1 ||
+      split > kRowsWarps || kRowsWarps % split ||
+      (long long)split * per_warp < w_cols)
+    return (int)cudaErrorInvalidValue;
+  const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* t = static_cast<const float*>(table);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0)
+    return dispatch_rows<float4>(ix, t, r_rows, w_cols, k, split, per_warp, o, s);
+  return dispatch_rows<float>(ix, t, r_rows, w_cols, k, split, per_warp, o, s);
 }
 
 extern "C" int bpmf_gather_lanes(const void* idx, const void* table_t,
                                  int r_rows, int w_cols, int nv, int k,
-                                 void* out, void* stream) {
-  if (r_rows < 1 || w_cols < 1 || nv < 1 || k < 1)
+                                 int rows_per_block, int chunk, void* out,
+                                 void* stream) {
+  // a chunk and the 3 floats that align its 16-byte copies, in 16-byte units
+  const long long smem = 16 * (((long long)sizeof(float) * (chunk + 3) + 15) / 16);
+  if (r_rows < 1 || w_cols < 1 || nv < 1 || k < 1 || rows_per_block < 1 ||
+      chunk < 1 || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (r_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  gather_lanes_kernel<<<blocks, kWarp * kRowsPerBlock, 0,
+  const long long groups = (r_rows + (long long)rows_per_block - 1) / rows_per_block;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gather_lanes_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gather_lanes_kernel<<<dim3(k, (unsigned)groups), kLanesThreads, (size_t)smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(table_t),
-      r_rows, w_cols, nv, k, static_cast<float*>(out));
+      r_rows, w_cols, nv, k, rows_per_block, chunk, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

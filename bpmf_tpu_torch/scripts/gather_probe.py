@@ -9,11 +9,14 @@ the card that gather takes half of the ml-25M half-scale iteration
 by one strategy, over a chain of ``N_STEPS`` launches whose table is carried
 as ``c * (1 + 1e-30 * o[0, 0])``, so that no launch can be skipped:
 
-A. one warp per item row, lane = latent dim, a 128-byte row per neighbour
-   (``csrc/gather_probe.cu`` ``gather_rows_kernel``; the JAX script's
-   ``kernel_a``)
-B. the transposed table [K, NV], lanes take neighbours, 4-byte scattered
-   loads and a warp-shuffle sum per k (``gather_lanes_kernel``; ``kernel_b``)
+A. each item row's neighbours split over ``split`` warps, a table row read
+   as 16-byte pieces by a quarter warp at K=32, the warps' partials added
+   in order (``csrc/gather_probe.cu`` ``gather_rows_kernel``, planned by
+   :func:`probe_plan_rows`; the JAX script's ``kernel_a``)
+B. the transposed table [K, NV], one k-row at a time in shared memory
+   (chunk by chunk past about 58,000 rows), lanes take neighbours and look
+   them up there, a warp-shuffle sum per (r, k) (``gather_lanes_kernel``,
+   planned by :func:`probe_plan_lanes`; ``kernel_b``)
 C. one block per item row, its W rows copied into shared memory with
    ``cp.async``, then one sum (``gather_copy_kernel``; ``kernel_c``)
 D. PyTorch's ``index_select`` then a sum: a gather that writes the rows out
@@ -41,8 +44,10 @@ import numpy as np
 import torch
 
 from bpmf_tpu_torch.device import resolve_device
+from bpmf_tpu_torch.ops.dense8 import _sm_count
 
 __all__ = ["K", "NV", "R", "W", "N_STEPS", "launches", "make_inputs",
+           "probe_plan_rows", "probe_plan_lanes",
            "gather_sum_rows", "gather_sum_lanes", "gather_sum_copy",
            "gather_sum_ref", "gather_sum_lanes_ref", "probe_chain", "run",
            "main"]
@@ -55,6 +60,56 @@ N_STEPS = 10
 
 # CUDA launches of each kernel (not plain-version calls)
 launches = {"A": 0, "B": 0, "C": 0}
+
+SMEM_MAX = 232448         # dynamic shared memory a block may have
+ROWS_WARPS = 16           # A: warps a block (csrc kRowsWarps)
+LANES_THREADS = 1024      # B: threads a block (csrc kLanesThreads)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def probe_plan_rows(r: int, w: int, k: int, sms: int = 132) -> dict:
+    """#9A's launch: each of the ``r`` item rows gets ``split`` warps (a
+    power of two dividing ROWS_WARPS), warp s taking neighbours
+    [s * per_warp, (s + 1) * per_warp) of the ``w``.  ``split`` doubles
+    while r * split warps stay within the ``sms`` SMs' 64 warps each (two
+    waves of the 32 a SM holds at the kernel's registers: 16 at R = 512, 1
+    at R = 8192 on an H100 SXM's 132) and each warp keeps at least 32
+    neighbours; the split warps' [K] partials meet in ``smem`` bytes of
+    shared memory (none at split 1; the kernel sizes it the same way)."""
+    split = 1
+    while (2 * split <= ROWS_WARPS and r * 2 * split <= sms * 64
+           and 2 * split * 32 <= w
+           and 4 * ROWS_WARPS * k <= SMEM_MAX):
+        split *= 2
+    rows_per_block = ROWS_WARPS // split
+    return {"split": split, "per_warp": _cdiv(w, split),
+            "rows_per_block": rows_per_block,
+            "blocks": _cdiv(r, rows_per_block),
+            "smem": 4 * ROWS_WARPS * k if split > 1 else 0}
+
+
+def probe_plan_lanes(r: int, w: int, nv: int, k: int, sms: int = 132) -> dict:
+    """#9B's launch: a grid of ``k`` k-rows x ``groups`` groups of
+    ``rows_per_block`` item rows.  A block stages its k-row in ``chunks``
+    pieces of ``chunk`` floats (one, up to 58,108 = NV; more past it), each
+    in ``smem`` bytes (3 floats of slack align the 16-byte copies; the
+    kernel sizes it the same way).  The groups fill one wave: as many
+    blocks as the ``sms`` SMs hold at that shared memory, at least one a
+    k-row; ``w`` does not change the plan."""
+    cap = SMEM_MAX // 4 - 4
+    chunks = _cdiv(nv, cap)
+    chunk = _cdiv(nv, chunks)
+    smem = 16 * _cdiv(4 * (chunk + 3), 16)
+    per_sm = max(1, min(2048 // LANES_THREADS, (228 * 1024) // (smem + 1024)))
+    groups = max(1, min(r, sms * per_sm // k))
+    rows_per_block = _cdiv(r, groups)
+    groups = _cdiv(r, rows_per_block)
+    return {"rows_per_block": rows_per_block, "groups": groups,
+            "chunk": chunk, "chunks": chunks, "smem": smem,
+            "blocks": k * groups}
 
 
 def make_inputs(*, k: int = K, nv: int = NV, r: int = R, w: int = W,
@@ -94,24 +149,30 @@ def _launch(key: str, device: torch.device, fn, *args) -> None:
 
 
 def gather_sum_rows(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """9A: out [R, K] = sum_w table[idx[r, w]], one warp per item row."""
+    """9A: out [R, K] = sum_w table[idx[r, w]], each item row's neighbours
+    split over warps (:func:`probe_plan_rows`)."""
     if _check("gather_sum_rows", idx, table) == "cpu":
         return gather_sum_ref(idx, table)
     (r, w), k = idx.shape, table.shape[1]
+    plan = probe_plan_rows(r, w, k, _sm_count(idx.device))
     out = torch.empty((r, k), dtype=torch.float32, device=idx.device)
     _launch("A", idx.device, _lib().bpmf_gather_rows, idx.data_ptr(),
-            table.data_ptr(), r, w, k, out.data_ptr())
+            table.data_ptr(), r, w, k, plan["split"], plan["per_warp"],
+            out.data_ptr())
     return out
 
 
 def gather_sum_lanes(idx: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
-    """9B: the same from the transposed table [K, NV]."""
+    """9B: the same from the transposed table [K, NV], a k-row at a time in
+    shared memory (:func:`probe_plan_lanes`)."""
     if _check("gather_sum_lanes", idx, table_t) == "cpu":
         return gather_sum_lanes_ref(idx, table_t)
     (r, w), (k, nv) = idx.shape, table_t.shape
+    plan = probe_plan_lanes(r, w, nv, k, _sm_count(idx.device))
     out = torch.empty((r, k), dtype=torch.float32, device=idx.device)
     _launch("B", idx.device, _lib().bpmf_gather_lanes, idx.data_ptr(),
-            table_t.data_ptr(), r, w, nv, k, out.data_ptr())
+            table_t.data_ptr(), r, w, nv, k, plan["rows_per_block"],
+            plan["chunk"], out.data_ptr())
     return out
 
 
@@ -127,7 +188,7 @@ def gather_sum_copy(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                          f"must be a multiple of 4 (K={k}) and the table "
                          "16-byte aligned")
     smem = _lib().bpmf_gather_copy_smem(w, k)
-    if smem > 232448:
+    if smem > SMEM_MAX:
         raise ValueError(f"gather_sum_copy: W={w} rows of K={k} need {smem} "
                          "bytes of shared memory, more than a block has")
     out = torch.empty((r, k), dtype=torch.float32, device=idx.device)
@@ -142,13 +203,13 @@ def _lib():
     from bpmf_tpu_torch.ops._build import load
 
     lib = load("gather_probe")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("bpmf_gather_rows", [p, p, i, i, i, p, p]),
-                       ("bpmf_gather_lanes", [p, p, i, i, i, i, p, p]),
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in (("bpmf_gather_rows", [p, p, i, i, i, i, i, p, p]),
+                       ("bpmf_gather_lanes", [p, p, i, i, i, i, i, i, p, p]),
                        ("bpmf_gather_copy", [p, p, i, i, i, p, p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
-    lib.bpmf_gather_copy_smem.restype = ctypes.c_longlong
+    lib.bpmf_gather_copy_smem.restype = ll
     lib.bpmf_gather_copy_smem.argtypes = [i, i]
     return lib
 
@@ -169,7 +230,7 @@ def gather_sum_lanes_ref(idx: torch.Tensor, table_t: torch.Tensor) -> torch.Tens
 
 
 PROBES = {
-    "A": ("A warp per row, rows ", gather_sum_rows, False),
+    "A": ("A split warps, rows  ", gather_sum_rows, False),
     "B": ("B lanes, transposed  ", gather_sum_lanes, True),
     "C": ("C cp.async rows      ", gather_sum_copy, False),
     "D": ("D torch index_select ", gather_sum_ref, False),

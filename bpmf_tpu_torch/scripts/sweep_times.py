@@ -2,7 +2,7 @@
 checkouts of this repository on one card.
 
     python bpmf_tpu_torch/scripts/sweep_times.py [--root DIR] [--label NAME]
-        [--legs tall,ml1m,random,split,blast,hoisted]
+        [--legs tall,ml1m,random,split,blast,hoisted,probe]
 
 Imports ``bpmf_tpu_torch`` from DIR (default: the checkout this file lies
 in), so one copy of the script times any tree whose megakernel has the
@@ -52,7 +52,14 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
   off) and, where the tree has ``hoisted_plan``, forced to one segment;
   then the chembl synth at K=64 under ``BPMF_D8_PT=hoisted`` (#4 on both
   sides: the proteins' most-rated with 61,253 ratings) as ``split`` runs
-  its chains.
+  its chains;
+* ``probe``: the gather probes #9A, #9B, #9C and ``embedding_bag`` (the
+  same function in one PyTorch call) at the JAX script's shapes (R = W =
+  512, NV = 32768, K = 32), at R = 8192, and B and ``embedding_bag`` at
+  NV = 81,270 (the ml-25M half-scale user count): ms per launch over 100
+  back-to-back launches (:func:`per_launch_ms`), and beside it the median
+  of 25 single calls, as ``chip_smoke.py``'s ``ms`` times them.  Any tree
+  whose wrappers are ``gather_sum_rows/lanes/copy(idx, table)`` times.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -83,6 +91,73 @@ def median_ms(fn, reps, warmup=2):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+SPIN_CYCLES = 20_000_000   # a spin kernel of about 10 ms on an H100
+
+
+def per_launch_ms(fn, n=100, warmup=3):
+    """CUDA-event time of ``n`` back-to-back calls of ``fn``, over ``n``.  A
+    spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues the calls, so the host's work per call (a wrapper's checks,
+    ``torch.empty``, the launch) does not pace the device: the spin is
+    lengthened until the host has enqueued all ``n`` before it ends."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        spin, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        spin_ms = spin.elapsed_time(a)
+        if host_ms < spin_ms:
+            return a.elapsed_time(b) / n
+        cycles *= 2 * math.ceil(host_ms / spin_ms)
+    raise RuntimeError(f"per_launch_ms: the host took {host_ms:.3f} ms to "
+                       f"enqueue {n} calls, longer than a {spin_ms:.3f} ms spin")
+
+
+PROBE_CELLS = {"R512": (32, 32768, 512, 512, "ABC"),
+               "R8192": (32, 32768, 8192, 512, "ABC"),
+               "NV81270": (32, 81270, 512, 512, "B")}
+
+
+def probe_times(n=100):
+    """#9A/B/C and ``embedding_bag`` per launch (``*_ms``) and as single
+    calls (``*_single_call_ms``) at each of PROBE_CELLS (K, NV, R, W,
+    kernels), the probe's inputs from seed 0."""
+    import torch
+
+    from bpmf_tpu_torch.scripts import gather_probe as gp
+
+    out = {}
+    for label, (k, nv, r, w, keys) in PROBE_CELLS.items():
+        idx_np, table_np = gp.make_inputs(k=k, nv=nv, r=r, w=w)
+        idx = torch.from_numpy(idx_np).to("cuda")
+        table = torch.from_numpy(table_np).to("cuda")
+        table_t = table.t().contiguous()
+        fns = {"A": lambda: gp.gather_sum_rows(idx, table),
+               "B": lambda: gp.gather_sum_lanes(idx, table_t),
+               "C": lambda: gp.gather_sum_copy(idx, table),
+               "embedding_bag": lambda: torch.nn.functional.embedding_bag(
+                   idx, table, mode="sum")}
+        cell = {}
+        for key in (*keys, "embedding_bag"):
+            cell[f"{key}_ms"] = per_launch_ms(fns[key], n)
+            cell[f"{key}_single_call_ms"] = median_ms(fns[key], 25, 3)
+        out[label] = cell
+        del idx, table, table_t
+    return out
 
 
 def chain(bpmf, cfg, train, test, warm, iters, k=32, **kw):
@@ -366,7 +441,7 @@ def main(argv=None):
     ap.add_argument("--ml1m-iters", type=int, default=200)
     ap.add_argument("--legs", default="tall,ml1m,random",
                     help="comma-separated: tall, ml1m, random, split, blast, "
-                         "hoisted")
+                         "hoisted, probe")
     a = ap.parse_args(argv)
     legs = a.legs.split(",")
     root = os.path.abspath(a.root)
@@ -437,6 +512,8 @@ def main(argv=None):
         finally:
             del os.environ["BPMF_D8_PT"]
         out["hoisted"] = hoisted
+    if "probe" in legs:
+        out["probe"] = probe_times()
     out["device"] = torch.cuda.get_device_name(0)
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -106,8 +106,12 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               (R = W = 512, NV = 32768, K = 32): the probe's entry point
               (its chains of 10 launches, best of 3, CUDA events; D is
               torch's index_select), then each kernel against its plain
-              version at 1e-4, median of 25 launches each, with
-              embedding_bag's time as the library yardstick
+              version at 1e-4 there, at R = 8192 and (B) at NV = 81,270
+              (its k-rows staged in two chunks): ms (and plain_ms,
+              library_ms) the median of 25 single calls, as before,
+              per_launch_ms the time per launch over 100 back-to-back
+              launches behind a spin kernel (sweep_times.per_launch_ms),
+              with embedding_bag's time as the library yardstick
   20. perfdebug phase 4's chain, 100 iterations with profile=True through
               BPMF.run: the counters report and the phase attribution
               (profile_phases: the full program, then nopredict, nosolve,
@@ -584,7 +588,11 @@ def main():
     from bpmf_tpu_torch.ops.update import chol_solve_sample as linalg_solve
     from bpmf_tpu_torch.parallel.spmd import _combine_prior_rhs
     from bpmf_tpu_torch.sampler import BPMF, HostDraws
-    from bpmf_tpu_torch.scripts.sweep_times import gram_library
+    from bpmf_tpu_torch.scripts.sweep_times import (
+        PROBE_CELLS,
+        gram_library,
+        per_launch_ms,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1559,7 +1567,9 @@ def main():
                headline=True, items=N_USERS)
     del codes, wb, lam_tri
 
-    # 19. the gather probes (#9) at the JAX script's shapes
+    # 19. the gather probes (#9): the entry point at the JAX script's shapes,
+    # then each kernel against its plain version there, at R = 8192 and (B)
+    # at NV = 81,270
     from bpmf_tpu_torch import read_matrix
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
@@ -1570,48 +1580,83 @@ def main():
                          probe_C=4 * gp.N_STEPS), n
     for key in ("probe_A", "probe_B", "probe_C"):
         total[key] = n[key]
-    idx_np, table_np = gp.make_inputs()
-    idx = torch.from_numpy(idx_np).to("cuda")
-    table = torch.from_numpy(table_np).to("cuda")
-    table_t = table.t().contiguous()
     embedding_bag = torch.nn.functional.embedding_bag
-    library = embedding_bag(idx, table, mode="sum")
-    torch.testing.assert_close(library, gp.gather_sum_ref(idx, table), **PROBE_TOL)
-    library_ms = median_ms(lambda: embedding_bag(idx, table, mode="sum"))
-    probe_d_ms = median_ms(lambda: gp.gather_sum_ref(idx, table))
-    r_rows, w_cols = idx_np.shape
-    edges = r_rows * w_cols
-    # the bytes the function must move: idx and out once, and the table
-    # rows this run's indices touch, once each
-    rows_touched = len(np.unique(idx_np))
-    probe_bytes = 4 * (edges + rows_touched * gp.K + r_rows * gp.K)
-    probe = {}
-    for key, fn, ref_fn, t in (
-            ("A", gp.gather_sum_rows, gp.gather_sum_ref, table),
-            ("B", gp.gather_sum_lanes, gp.gather_sum_lanes_ref, table_t),
-            ("C", gp.gather_sum_copy, gp.gather_sum_ref, table)):
-        got = fn(idx, t)
-        torch.cuda.synchronize()
-        want = ref_fn(idx, t)
-        torch.testing.assert_close(got, want, **PROBE_TOL)
-        r = {"max_abs_err": float((got - want).abs().max()),
-             "ms": median_ms(lambda: fn(idx, t)),
-             "plain_ms": median_ms(lambda: ref_fn(idx, t)),
-             "nbytes": probe_bytes, "flops": edges * gp.K}
-        probe[key] = r
-        emit({"phase": "probe", "kernel": f"gather_probe {key}",
-              "shape": {"R": r_rows, "W": w_cols, "NV": gp.NV, "K": gp.K},
-              "tolerance": PROBE_TOL, **r,
-              "m_edges_per_s": edges / r["ms"] / 1e3,
-              "l2_gathered_bytes": 4 * edges * gp.K,
-              "rows_touched": rows_touched,
-              "library_ms": library_ms, "probe_d_ms": probe_d_ms,
-              "probe_d_m_edges_per_s": edges / probe_d_ms / 1e3,
-              "chain": probe_run[key], **bound(probe_bytes, edges * gp.K), **tag})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    probe_cells = {}
+    for label, (pk, pnv, pr, pw, keys) in PROBE_CELLS.items():
+        idx_np, table_np = gp.make_inputs(k=pk, nv=pnv, r=pr, w=pw)
+        idx = torch.from_numpy(idx_np).to("cuda")
+        table = torch.from_numpy(table_np).to("cuda")
+        table_t = table.t().contiguous()
+        library = embedding_bag(idx, table, mode="sum")
+        torch.testing.assert_close(library, gp.gather_sum_ref(idx, table),
+                                   **PROBE_TOL)
+        yardsticks = {}
+        for name, fn in (("library", lambda: embedding_bag(idx, table, mode="sum")),
+                         ("probe_d", lambda: gp.gather_sum_ref(idx, table))):
+            yardsticks[name + "_ms"] = median_ms(fn)
+            yardsticks[name + "_per_launch_ms"] = per_launch_ms(fn)
+        edges = pr * pw
+        # the bytes the function must move: idx and out once, and the table
+        # rows this run's indices touch, once each
+        rows_touched = len(np.unique(idx_np))
+        probe_bytes = 4 * (edges + rows_touched * pk + pr * pk)
+        plan_a = gp.probe_plan_rows(pr, pw, pk, sms)
+        plan_b = gp.probe_plan_lanes(pr, pw, pnv, pk, sms)
+        # the bytes each design is modelled to read from L2 (no profiler
+        # counter backs them): A and C each neighbour's row and idx once; B
+        # its staged k-rows and idx once per k-row and chunk
+        l2_model = {"A": 4 * edges * (pk + 1), "C": 4 * edges * (pk + 1),
+                    "B": 4 * pk * (plan_b["groups"] * pnv
+                                   + plan_b["chunks"] * edges)}
+        cell = {}
+        for key in keys:
+            fn, ref_fn, t = {
+                "A": (gp.gather_sum_rows, gp.gather_sum_ref, table),
+                "B": (gp.gather_sum_lanes, gp.gather_sum_lanes_ref, table_t),
+                "C": (gp.gather_sum_copy, gp.gather_sum_ref, table)}[key]
+            got = fn(idx, t)
+            torch.cuda.synchronize()
+            want = ref_fn(idx, t)
+            torch.testing.assert_close(got, want, **PROBE_TOL)
+            r = {"max_abs_err": float((got - want).abs().max()),
+                 "ms": median_ms(lambda: fn(idx, t)),
+                 "plain_ms": median_ms(lambda: ref_fn(idx, t)),
+                 "per_launch_ms": per_launch_ms(lambda: fn(idx, t)),
+                 "plain_per_launch_ms": per_launch_ms(lambda: ref_fn(idx, t)),
+                 "nbytes": probe_bytes, "flops": edges * pk}
+            cell[key] = r
+            emit({"phase": "probe", "cell": label, "kernel": f"gather_probe {key}",
+                  "shape": {"R": pr, "W": pw, "NV": pnv, "K": pk},
+                  "tolerance": PROBE_TOL, **r,
+                  "plan": {"A": plan_a, "B": plan_b}.get(key),
+                  "m_edges_per_s": edges / r["ms"] / 1e3,
+                  "l2_gathered_bytes": 4 * edges * pk,
+                  "l2_model_bytes": l2_model[key],
+                  "l2_model_tb_per_s": l2_model[key] / r["per_launch_ms"] / 1e9,
+                  "rows_touched": rows_touched, **yardsticks,
+                  "probe_d_m_edges_per_s": edges / yardsticks["probe_d_ms"] / 1e3,
+                  **({"chain": probe_run[key]} if label == "R512" else {}),
+                  **bound(probe_bytes, edges * pk), **tag})
+        cell["library_ms"] = yardsticks["library_ms"]
+        cell["library_per_launch_ms"] = yardsticks["library_per_launch_ms"]
+        probe_cells[label] = cell
+        del idx, table, table_t, library
     emit({"phase": "probe", "entry_point": probe_run, "launches": n,
-          "embedding_bag_ms": library_ms,
-          "embedding_bag_m_edges_per_s": edges / library_ms / 1e3, **tag})
-    del idx, table, table_t, library
+          "embedding_bag_ms": {c: v["library_ms"] for c, v in probe_cells.items()},
+          "embedding_bag_per_launch_ms": {
+              c: v["library_per_launch_ms"] for c, v in probe_cells.items()},
+          **tag})
+    # the kernels line keeps ms, plain_ms and library_ms as single calls,
+    # as every earlier line has them; the per-launch times stand beside
+    probe = probe_cells["R512"]
+    for key in "ABC":
+        probe[key]["library_per_launch_ms"] = probe["library_per_launch_ms"]
+    for key in "AB":
+        probe[key]["per_launch_ms_R8192"] = probe_cells["R8192"][key]["per_launch_ms"]
+    probe["B"]["per_launch_ms_NV81270"] = (
+        probe_cells["NV81270"]["B"]["per_launch_ms"])
+    library_ms = probe["library_ms"]
 
     # 20. perf-debug: --profile on the main path, each ablation's route,
     # defer_predict
@@ -1889,11 +1934,14 @@ def main():
               "bpmf_tpu/ops/pallas_solve.py:89", "blast", main8,
               library_ms=library8),
         entry("gather_probe A (warp per row)", "gather_probe.cu",
-              "scripts/gather_probe.py:66", "probe_A", probe["A"],
+              "scripts/gather_probe.py:66", "probe_A",
+              {**probe["A"], "design": "neighbours split over warps, "
+                                       "16-byte pieces"},
               library_ms=library_ms),
         entry("gather_probe B (transposed table, lanes over neighbours)",
               "gather_probe.cu", "scripts/gather_probe.py:87", "probe_B",
-              probe["B"], library_ms=library_ms),
+              {**probe["B"], "design": "a k-row in shared memory"},
+              library_ms=library_ms),
         entry("gather_probe C (cp.async rows into shared memory)",
               "gather_probe.cu", "scripts/gather_probe.py:107", "probe_C",
               probe["C"], library_ms=library_ms),

@@ -846,6 +846,8 @@ def test_grouped_solve_kernel_matches_plain_on_card(cuda, k, peritem):
 
 # -- the gather probes (Queue 2 #9) ---------------------------------------
 
+PROBE_TOL = dict(rtol=1e-4, atol=1e-4)  # sums of up to 512 f32 terms, other order
+
 def _probe_inputs(k, nv, r, w, seed=0, device="cpu"):
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
@@ -872,11 +874,15 @@ def test_probe_wrappers_refuse_bad_input():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 32768, 512, 512), (32, 1000, 7, 45),
-                                   (64, 500, 9, 33), (12, 300, 5, 70)])
+                                   (64, 500, 9, 33), (12, 300, 5, 70),
+                                   (32, 32768, 8192, 512), (32, 81270, 64, 512),
+                                   (32, 1000, 1, 1)])
 def test_probe_kernels_match_plain_on_card(cuda, shape):
     """#9 A, B and C against their plain versions: sums of W f32 terms in
-    another order, 1e-4.  A ragged W, K=64 (two lane passes) and K=12 (A
-    and B mask lanes; C copies three 16-byte pieces per row)."""
+    another order, PROBE_TOL.  A ragged W, K=64 (A: a half warp a row) and
+    K=12 (A masks a lane of four; C copies three 16-byte pieces per row),
+    R = 8192 (A at one warp a row), NV = 81,270 (B's k-row in two chunks,
+    each off 16-byte alignment at odd k) and one neighbour of one row."""
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
     k, nv, r, w = shape
@@ -890,9 +896,36 @@ def test_probe_kernels_match_plain_on_card(cuda, shape):
         got = fn(idx, t)
         torch.cuda.synchronize()
         assert gp.launches[key] == before + 1, key
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got, want, **PROBE_TOL)
     torch.testing.assert_close(gp.gather_sum_lanes_ref(idx, table_t), want,
-                               rtol=1e-4, atol=1e-4)
+                               **PROBE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32768, 512, 512), (32, 81270, 64, 512),
+                                   (12, 300, 5, 70)])
+def test_probe_kernels_repeat_bitwise_on_card(cuda, shape):
+    """#9A and #9B add in a fixed order (no atomics): two launches give the
+    same bits, on a 16-byte aligned table and on one a float off it (A's
+    4-byte pieces; B's k-rows staged with a head and a tail), and agree
+    with the plain version there too."""
+    from bpmf_tpu_torch.scripts import gather_probe as gp
+
+    k, nv, r, w = shape
+    idx, table = _probe_inputs(k, nv, r, w, seed=7, device=cuda)
+    want = gp.gather_sum_ref(idx, table)
+    shifted = [torch.empty(table.numel() + 1, device=cuda)[1:] for _ in "AB"]
+    for t, t_t in ((table, table.t().contiguous()),
+                   (shifted[0].view(nv, k).copy_(table),
+                    shifted[1].view(k, nv).copy_(table.t()))):
+        for key, fn, arg in (("A", gp.gather_sum_rows, t),
+                             ("B", gp.gather_sum_lanes, t_t)):
+            before = gp.launches[key]
+            first, second = fn(idx, arg), fn(idx, arg)
+            torch.cuda.synchronize()
+            assert gp.launches[key] == before + 2, key
+            assert torch.equal(first, second), key
+            torch.testing.assert_close(first, want, **PROBE_TOL)
 
 
 @pytest.mark.cuda

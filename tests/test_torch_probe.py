@@ -2,10 +2,12 @@
 Pallas kernels and its XLA probe, on the CPU at small shapes.
 
 ``scripts/gather_probe.py`` is loaded by path and its shape constants set
-to R=8, W=16, NV=64 (K stays 32); each kernel runs in a ``pl.pallas_call``
-built with the script's own specs, in interpret mode (kernel C, with its
-SMEM indices and DMA semaphore, under ``pltpu.InterpretParams``).  The
-port's wrappers take their plain versions for CPU tensors."""
+to R=8, W=16, NV=64 (K stays 32), and for A and B also to a ragged W, R=1
+and K=12, the script loaded anew for each; each kernel runs in a
+``pl.pallas_call`` built with the script's own specs, in interpret mode
+(kernel C, with its SMEM indices and DMA semaphore, under
+``pltpu.InterpretParams``).  The port's wrappers take their plain versions
+for CPU tensors."""
 
 import importlib.util
 import os
@@ -26,13 +28,22 @@ TOL = dict(rtol=1e-5, atol=1e-5)  # sums of W f32 terms in another order
 R, W, NV, K = 8, 16, 64, 32
 
 
-@pytest.fixture(scope="module")
-def script():
+def _load_script(r, w, nv, k=None):
+    """A fresh copy of the JAX script with its shape constants set (K only
+    when given)."""
     spec = importlib.util.spec_from_file_location(
         "jax_gather_probe", os.path.join(REPO, "scripts", "gather_probe.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.R, mod.W, mod.NV = R, W, NV
+    mod.R, mod.W, mod.NV = r, w, nv
+    if k is not None:
+        mod.K = k
+    return mod
+
+
+@pytest.fixture(scope="module")
+def script():
+    mod = _load_script(R, W, NV)
     assert mod.K == K
     return mod
 
@@ -43,9 +54,11 @@ def inputs():
 
 
 def _jax_out(script, name, idx, table):
-    """One launch of the script's kernel ``name`` with its specs."""
+    """One launch of the script's kernel ``name`` with its specs, at the
+    shapes of ``idx`` [R, W] and ``table`` [NV, K]."""
+    (r, w), k = idx.shape, table.shape[1]
     vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out_shape = jax.ShapeDtypeStruct((R, K), jnp.float32)
+    out_shape = jax.ShapeDtypeStruct((r, k), jnp.float32)
     if name == "a":
         call = pl.pallas_call(script.kernel_a, in_specs=[vmem, vmem],
                               out_specs=vmem, out_shape=out_shape,
@@ -58,14 +71,14 @@ def _jax_out(script, name, idx, table):
         return call(jnp.asarray(idx.reshape(-1)),
                     jnp.asarray(np.ascontiguousarray(table.T)))
     call = pl.pallas_call(
-        script.kernel_c, grid=(R,),
-        in_specs=[pl.BlockSpec((1, W), lambda i: (i, 0),
+        script.kernel_c, grid=(r,),
+        in_specs=[pl.BlockSpec((1, w), lambda i: (i, 0),
                                memory_space=pltpu.SMEM),
                   pl.BlockSpec(memory_space=pltpu.ANY)],
-        out_specs=pl.BlockSpec((1, K), lambda i: (i, 0),
+        out_specs=pl.BlockSpec((1, k), lambda i: (i, 0),
                                memory_space=pltpu.VMEM),
         out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((W, K), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((w, k), jnp.float32),
                         pltpu.SemaphoreType.DMA(())],
         interpret=pltpu.InterpretParams())
     return call(jnp.asarray(idx), jnp.asarray(table))
@@ -78,6 +91,24 @@ def test_probe_kernel_matches_jax(script, inputs, name, port):
     the script's Pallas kernel, and both against numpy."""
     idx, table = inputs
     want = np.asarray(_jax_out(script, name, idx, table))
+    t = table.T.copy() if name == "b" else table
+    got = getattr(gp, port)(torch.from_numpy(idx), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(want, table[idx].sum(1), **TOL)
+
+
+@pytest.mark.parametrize("r,w,nv,k", [(8, 37, 64, 32), (1, 16, 64, 32),
+                                      (8, 16, 64, 12)],
+                         ids=["ragged-W", "R1", "K12"])
+@pytest.mark.parametrize("name,port", [("a", "gather_sum_rows"),
+                                       ("b", "gather_sum_lanes")])
+def test_probe_kernel_matches_jax_shapes(name, port, r, w, nv, k):
+    """9A/9B beyond the script's own shapes: a ragged W (37), one item row
+    and K=12, the script loaded anew with those constants."""
+    script = _load_script(r, w, nv, k)
+    idx, table = gp.make_inputs(k=k, nv=nv, r=r, w=w, seed=r + w + k)
+    want = np.asarray(_jax_out(script, name, idx, table))
+    assert want.shape == (r, k)
     t = table.T.copy() if name == "b" else table
     got = getattr(gp, port)(torch.from_numpy(idx), torch.from_numpy(t)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
