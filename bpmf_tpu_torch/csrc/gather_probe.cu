@@ -52,10 +52,30 @@
 //                           thread that wrote it adds the next one).
 //   gather_copy_kernel   <- :107 kernel_c (call :128): one grid step per r,
 //                           W row DMAs from HBM into a [W, K] VMEM scratch on
-//                           one semaphore, then one sum.  One block per r:
-//                           cp.async 16-byte copies of the W rows into
-//                           dynamic shared memory, cp.async.wait_all and a
-//                           barrier, then the sum over W from shared memory.
+//                           one semaphore, then one sum.  Here persistent
+//                           blocks (the plan, probe_plan_copy: two an SM)
+//                           take item rows b, b + blocks, ... and stream
+//                           their neighbours' rows through a ring of
+//                           `stages` slots of `chunk` rows (3 of 256 rows, 32
+//                           KB each, at K = 32).  Producer warp p copies rows
+//                           [32 p, 32 p + 32) of each slot, a lane a row, with
+//                           one bulk copy (cp.async.bulk, the TMA) that
+//                           completes its bytes on the slot's "full"
+//                           mbarrier, after waiting on the slot's "empty"
+//                           one; its lanes load their rows' indices 4 chunks
+//                           ahead.  Four consumer warps wait on "full", sum
+//                           their share of the slot's rows in registers (a
+//                           lane a column), release the slot, and at the end
+//                           of an item row add their partials in warp order:
+//                           no atomics, the same bits every launch.  The
+//                           ring's size depends on K, not on W.  K % 4 != 0
+//                           or a table off 16-byte alignment fills the same
+//                           ring with 4-byte cp.async, which arrive on
+//                           "full" through cp.async.mbarrier.arrive.noinc;
+//                           past 1024 columns a row goes in slabs of 1024.
+//                           What bounds it on an H100: TMA requests, not
+//                           bytes (about 340 row copies a microsecond an SM
+//                           at R = 8192, PERF.md), so it stays behind A.
 //
 // The indices must lie in [0, NV): the kernels do not check them, as the
 // TPU kernels do not.
@@ -69,7 +89,12 @@ constexpr int kWarp = 32;
 constexpr int kRowsWarps = 16;  // A: warps a block
 constexpr int kRowsThreads = kWarp * kRowsWarps;
 constexpr int kLanesThreads = 1024;  // B
-constexpr int kCopyThreads = 256;  // C
+constexpr int kCopyConsumers = 4;  // C: consumer warps a block
+constexpr int kCopyMaxProducers = 8;  // C: producer warps, one a 32 rows of a slot
+constexpr int kCopyMaxChunk = kWarp * kCopyMaxProducers;  // table rows a slot
+constexpr int kCopyMaxThreads = kWarp * (kCopyMaxProducers + kCopyConsumers);
+constexpr int kCopyMaxStages = 16;
+constexpr int kCopyAhead = 4;  // C: chunks whose indices a producer holds
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -228,42 +253,198 @@ gather_lanes_kernel(const int32_t* __restrict__ idx,    // [R, W]
   }
 }
 
-// C: block r copies its W rows into shared memory [W, K] (16-byte pieces,
-// K % 4 == 0), waits for all of them, then thread group g sums rows
-// g, g + G, ... of column k = t % K, and the first K threads add the G
-// partials in order.
-__global__ void __launch_bounds__(kCopyThreads)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+
+// mbarriers: a phase completes when `count` arrivals (and, after an
+// expect_tx, that many bytes of bulk copies) have come in
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("{\n.reg .b64 st;\n"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// the calling thread's earlier cp.asyncs arrive on `bar` once they have
+// landed (one of the arrivals its init count expects)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+// one bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) that completes its bytes on `bar`
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared memory of gather_copy_kernel in bytes: the ring [stages][chunk]
+// [cols], two sets of the consumers' [cols] partials, then the stages'
+// "full" and "empty" mbarriers.
+__host__ __device__ __forceinline__ long long copy_bar_offset(int stages, int chunk,
+                                                              int cols) {
+  const long long floats = (long long)stages * chunk * cols + 2LL * kCopyConsumers * cols;
+  return 4 * (floats + floats % 2);
+}
+__host__ __device__ __forceinline__ long long copy_smem(int stages, int chunk, int cols) {
+  return copy_bar_offset(stages, chunk, cols) + 16LL * stages;
+}
+
+// Where a block is in its walk over (item row, slab, chunk), block b taking
+// item rows b, b + gridDim.x, ...
+struct CopyTask {
+  int64_t r;
+  int s, c;
+  __device__ __forceinline__ void next(int slabs, int chunks) {
+    if (++c < chunks) return;
+    c = 0;
+    if (++s < slabs) return;
+    s = 0;
+    r += gridDim.x;
+  }
+};
+
+// C: BULK, the producers copy a row with one bulk copy (the TMA; `width`
+// floats), else with 4-byte cp.async pieces.  Each item row goes in slabs
+// of `cols` columns, each slab's W neighbours in chunks of `chunk` rows,
+// one chunk a ring slot.  Warp p < ceil(chunk / 32) copies the chunk's
+// rows [32 p, 32 p + 32), its lane l's index loaded kCopyAhead chunks
+// ahead; the kCopyConsumers warps after them sum, warp q the rows q,
+// q + kCopyConsumers, ...
+template <bool BULK>
+__global__ void __launch_bounds__(kCopyMaxThreads)
 gather_copy_kernel(const int32_t* __restrict__ idx,    // [R, W]
                    const float* __restrict__ table,    // [NV, K]
-                   int w_cols, int k,
+                   int r_rows, int w_cols, int k, int cols, int chunk, int stages,
                    float* __restrict__ out)            // [R, K]
 {
-  extern __shared__ __align__(16) float rows[];  // [W, K] then [G, K]
-  const int64_t r = blockIdx.x;
-  const int32_t* row_idx = idx + r * w_cols;
-  const int pieces = k / 4;  // 16-byte pieces per row
-  for (int c = threadIdx.x; c < w_cols * pieces; c += kCopyThreads) {
-    const int w = c / pieces, p = c - w * pieces;
-    cp_async16(rows + w * k + 4 * p,
-               table + int64_t(row_idx[w]) * k + 4 * p);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-
-  const int groups = max(1, kCopyThreads / k);
-  float* part = rows + w_cols * k;  // [groups, K]
-  for (int t = threadIdx.x; t < groups * k; t += kCopyThreads) {
-    const int g = t / k, kk = t - g * k;
-    float acc = 0.0f;
-    for (int w = g; w < w_cols; w += groups) acc += rows[w * k + kk];
-    part[g * k + kk] = acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* part = ring + stages * chunk * cols;  // [2][kCopyConsumers][cols]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + copy_bar_offset(stages, chunk, cols));
+  uint64_t* empty = full + stages;
+  const int producers = (chunk + kWarp - 1) / kWarp;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // bulk: each producer warp's expect_tx; cp.async: each producer lane's
+      mbar_init(full + s, BULK ? producers : kWarp * producers);
+      mbar_init(empty + s, kCopyConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int kk = threadIdx.x; kk < k; kk += kCopyThreads) {
-    float acc = 0.0f;
-    for (int g = 0; g < groups; ++g) acc += part[g * k + kk];
-    out[r * k + kk] = acc;
+  const int slabs = (k + cols - 1) / cols;
+  const int chunks = (w_cols + chunk - 1) / chunk;
+  int stage = 0;
+  unsigned phase = 0;
+  if (warp < producers) {
+    const int lo = warp * kWarp;  // this warp's rows of a chunk
+    // the indices of the next kCopyAhead chunks, row lo + lane of each
+    CopyTask ahead{blockIdx.x, 0, 0};
+    auto load_ahead = [&]() {
+      const int i = ahead.c * chunk + lo + lane;
+      const int32_t x = ahead.r < r_rows && lo + lane < chunk && i < w_cols
+                            ? __ldg(idx + ahead.r * w_cols + i) : 0;
+      ahead.next(slabs, chunks);
+      return x;
+    };
+    int32_t v[kCopyAhead];
+#pragma unroll
+    for (int a = 0; a < kCopyAhead; ++a) v[a] = load_ahead();
+    for (CopyTask t{blockIdx.x, 0, 0}; t.r < r_rows; t.next(slabs, chunks)) {
+      const int c0 = t.s * cols, width = min(cols, k - c0);
+      const int m = min(kWarp, min(chunk, w_cols - t.c * chunk) - lo);
+      const int32_t mine = v[0];
+#pragma unroll
+      for (int a = 0; a + 1 < kCopyAhead; ++a) v[a] = v[a + 1];
+      v[kCopyAhead - 1] = load_ahead();
+      mbar_wait(empty + stage, phase ^ 1);
+      float* dst = ring + (stage * chunk + lo) * cols;
+      const float* src = table + c0;
+      if constexpr (BULK) {
+        if (lane == 0) mbar_arrive_expect_tx(full + stage, 4u * max(m, 0) * width);
+        __syncwarp();
+        if (lane < m)
+          bulk_copy(dst + lane * cols, src + int64_t(mine) * k, 4u * width,
+                    full + stage);
+      } else {
+        // SPAN lanes a row, neighbouring lanes on neighbouring floats
+        int span = 1;
+        while (span < width && span < kWarp) span *= 2;
+        const int per = kWarp / span, sub = lane / span;
+        for (int j0 = 0; j0 < kWarp; j0 += per) {
+          const int j = j0 + sub;
+          const int64_t row = __shfl_sync(0xffffffffu, mine, j);
+          if (j >= m) continue;
+          for (int p = lane % span; p < width; p += span)
+            cp_async4(dst + j * cols + p, src + row * k + p);
+        }
+        cp_async_arrive(full + stage);
+      }
+      if (++stage == stages) { stage = 0; phase ^= 1; }
+    }
+    if constexpr (!BULK) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  const int q = warp - producers, t = threadIdx.x - producers * kWarp;
+  int buf = 0;
+  for (int64_t r = blockIdx.x; r < r_rows; r += gridDim.x) {
+    for (int s = 0; s < slabs; ++s) {
+      const int c0 = s * cols, width = min(cols, k - c0);
+      float* mine = part + (buf * kCopyConsumers + q) * cols;
+      for (int c = 0; c < chunks; ++c) {
+        const int n = min(chunk, w_cols - c * chunk);
+        mbar_wait(full + stage, phase);
+        const float* rows = ring + stage * chunk * cols;
+        for (int col = lane; col < width; col += kWarp) {
+          float acc = 0.0f;
+#pragma unroll 8
+          for (int i = q; i < n; i += kCopyConsumers) acc += rows[i * cols + col];
+          mine[col] = c == 0 ? acc : mine[col] + acc;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stage);
+        if (++stage == stages) { stage = 0; phase ^= 1; }
+      }
+      // the consumers' partials, in warp order; the next slab writes the
+      // other set, so one barrier a slab keeps this one until it is read
+      asm volatile("bar.sync 1, %0;\n" ::"r"(kCopyConsumers * kWarp) : "memory");
+      const float* sets = part + buf * kCopyConsumers * cols;
+      for (int col = t; col < width; col += kCopyConsumers * kWarp) {
+        float acc = 0.0f;
+        for (int p = 0; p < kCopyConsumers; ++p) acc += sets[p * cols + col];
+        out[r * k + c0 + col] = acc;
+      }
+      buf ^= 1;
+    }
   }
 }
 
@@ -310,14 +491,28 @@ int dispatch_rows(const int32_t* idx, const float* table, int r_rows,
   }
 }
 
+template <bool BULK>
+int launch_copy(const int32_t* idx, const float* table, int r_rows, int w_cols,
+                int k, int blocks, int chunk, int stages, int cols, float* out,
+                cudaStream_t stream) {
+  const long long smem = copy_smem(stages, chunk, cols);
+  cudaError_t err = allow_smem(gather_copy_kernel<BULK>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int producers = (chunk + kWarp - 1) / kWarp;
+  gather_copy_kernel<BULK><<<blocks, kWarp * (producers + kCopyConsumers),
+                             (size_t)smem, stream>>>(
+      idx, table, r_rows, w_cols, k, cols, chunk, stages, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  idx is [R, W] int32, the
 // tables and out row-major float32.  Each launches on `stream` and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
-// The plans (split, per_warp, rows_per_block, chunk) come from
-// bpmf_tpu_torch/scripts/gather_probe.py; each kernel sizes its shared
-// memory from them.
+// The plans (split, per_warp; rows_per_block, chunk; blocks, chunk, stages,
+// cols) come from bpmf_tpu_torch/scripts/gather_probe.py; each kernel
+// sizes its shared memory from them.
 extern "C" int bpmf_gather_rows(const void* idx, const void* table, int r_rows,
                                 int w_cols, int k, int split, int per_warp,
                                 void* out, void* stream) {
@@ -354,25 +549,19 @@ extern "C" int bpmf_gather_lanes(const void* idx, const void* table_t,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of gather_copy_kernel: the [W, K] rows and the [G, K]
-// partials.
-extern "C" long long bpmf_gather_copy_smem(int w_cols, int k) {
-  const int groups = k < kCopyThreads ? kCopyThreads / k : 1;
-  return (long long)sizeof(float) * ((long long)w_cols * k + (long long)groups * k);
-}
-
 extern "C" int bpmf_gather_copy(const void* idx, const void* table, int r_rows,
-                                int w_cols, int k, void* out, void* stream) {
-  if (r_rows < 1 || w_cols < 1 || k < 4 || k % 4) return (int)cudaErrorInvalidValue;
-  const long long smem = bpmf_gather_copy_smem(w_cols, k);
-  // above 48 KB only after the attribute is raised; otherwise the launch is
-  // refused and only its return code says so
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gather_copy_kernel<<<r_rows, kCopyThreads, (size_t)smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const float*>(table),
-      w_cols, k, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+                                int w_cols, int k, int blocks, int chunk,
+                                int stages, int cols, void* out, void* stream) {
+  if (r_rows < 1 || w_cols < 1 || k < 1 || blocks < 1 || chunk < 1 ||
+      chunk > kCopyMaxChunk || stages < 1 || stages > kCopyMaxStages ||
+      cols < 1 || cols > k || copy_smem(stages, chunk, cols) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* t = static_cast<const float*>(table);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  // bulk copies need K, the slab width and the table 16-byte aligned
+  if (k % 4 == 0 && cols % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0)
+    return launch_copy<true>(ix, t, r_rows, w_cols, k, blocks, chunk, stages, cols, o, s);
+  return launch_copy<false>(ix, t, r_rows, w_cols, k, blocks, chunk, stages, cols, o, s);
 }

@@ -17,8 +17,13 @@ B. the transposed table [K, NV], one k-row at a time in shared memory
    (chunk by chunk past about 58,000 rows), lanes take neighbours and look
    them up there, a warp-shuffle sum per (r, k) (``gather_lanes_kernel``,
    planned by :func:`probe_plan_lanes`; ``kernel_b``)
-C. one block per item row, its W rows copied into shared memory with
-   ``cp.async``, then one sum (``gather_copy_kernel``; ``kernel_c``)
+C. persistent blocks, each streaming its item rows' neighbour rows through
+   a ring of slots in shared memory: producer warps copy each row with one
+   bulk copy (the TMA) that completes on the slot's mbarrier, while four
+   consumer warps sum the slots that have landed and free them (4-byte
+   ``cp.async`` for a K or a table off 16-byte alignment;
+   ``gather_copy_kernel``, planned by :func:`probe_plan_copy`;
+   ``kernel_c``)
 D. PyTorch's ``index_select`` then a sum: a gather that writes the rows out
    to device memory, as XLA's ``jnp.take`` does in the JAX script.  Not a
    kernel of the port.
@@ -47,7 +52,7 @@ from bpmf_tpu_torch.device import resolve_device
 from bpmf_tpu_torch.ops.dense8 import _sm_count
 
 __all__ = ["K", "NV", "R", "W", "N_STEPS", "launches", "make_inputs",
-           "probe_plan_rows", "probe_plan_lanes",
+           "probe_plan_rows", "probe_plan_lanes", "probe_plan_copy",
            "gather_sum_rows", "gather_sum_lanes", "gather_sum_copy",
            "gather_sum_ref", "gather_sum_lanes_ref", "probe_chain", "run",
            "main"]
@@ -64,6 +69,11 @@ launches = {"A": 0, "B": 0, "C": 0}
 SMEM_MAX = 232448         # dynamic shared memory a block may have
 ROWS_WARPS = 16           # A: warps a block (csrc kRowsWarps)
 LANES_THREADS = 1024      # B: threads a block (csrc kLanesThreads)
+COPY_MAX_CHUNK = 256      # C: table rows a slot, 32 a producer warp (csrc kCopyMaxChunk)
+COPY_MAX_STAGES = 16      # C: slots a ring (csrc kCopyMaxStages)
+COPY_MAX_COLS = 1024      # C: columns a copy (wider rows go in slabs)
+COPY_SLOT = 32768         # C: bytes of table rows a slot holds at most
+COPY_RING = 3 * COPY_SLOT  # C: bytes of slots a ring asks for
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -110,6 +120,28 @@ def probe_plan_lanes(r: int, w: int, nv: int, k: int, sms: int = 132) -> dict:
     return {"rows_per_block": rows_per_block, "groups": groups,
             "chunk": chunk, "chunks": chunks, "smem": smem,
             "blocks": k * groups}
+
+
+def probe_plan_copy(r: int, w: int, k: int, sms: int = 132) -> dict:
+    """#9C's launch: ``blocks`` persistent blocks, about two an SM of the
+    ``sms`` (each takes ceil(r / blocks) or one fewer of the ``r`` item
+    rows, block b rows b, b + blocks, ...).  A row goes in slabs of
+    ``cols`` columns (one slab up to COPY_MAX_COLS), a slab's neighbours in
+    chunks of ``chunk`` table rows (COPY_SLOT bytes of rows, at most
+    COPY_MAX_CHUNK: 256 at K = 32), one chunk a slot of a ring of
+    ``stages`` slots: at least 3 and as many as COPY_RING bytes take, at
+    most COPY_MAX_STAGES.  From K = 6 the ring holds at least COPY_RING
+    bytes; below it its 16 slots of 256 rows hold 16 KB a column of K.
+    Two rings an SM keep more than the ~48 KB in flight that ~60 GB/s an
+    SM needs at ~0.8 us of L2 latency at every K but 1 (32 KB there).  The
+    kernel sizes its shared memory (the ring, the consumers' partials, the
+    slots' mbarriers) from these four numbers; ``w`` changes none."""
+    cols = min(k, COPY_MAX_COLS)
+    chunk = max(1, min(COPY_MAX_CHUNK, COPY_SLOT // (4 * cols)))
+    stages = max(3, min(COPY_MAX_STAGES, _cdiv(COPY_RING, 4 * chunk * cols)))
+    rows_per_block = _cdiv(r, 2 * sms)
+    return {"blocks": _cdiv(r, rows_per_block), "chunk": chunk,
+            "stages": stages, "cols": cols}
 
 
 def make_inputs(*, k: int = K, nv: int = NV, r: int = R, w: int = W,
@@ -177,23 +209,17 @@ def gather_sum_lanes(idx: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
 
 
 def gather_sum_copy(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """9C: the same with each item row's W table rows copied into shared
-    memory first (``cp.async``, 16 bytes a copy: K % 4 == 0 and a 16-byte
-    aligned table)."""
+    """9C: the same with each item row's table rows streamed through a ring
+    of slots in shared memory, copied asynchronously and summed as they
+    land (:func:`probe_plan_copy`)."""
     if _check("gather_sum_copy", idx, table) == "cpu":
         return gather_sum_ref(idx, table)
     (r, w), k = idx.shape, table.shape[1]
-    if k % 4 or table.data_ptr() % 16:
-        raise ValueError("gather_sum_copy: cp.async copies 16 bytes, so K "
-                         f"must be a multiple of 4 (K={k}) and the table "
-                         "16-byte aligned")
-    smem = _lib().bpmf_gather_copy_smem(w, k)
-    if smem > SMEM_MAX:
-        raise ValueError(f"gather_sum_copy: W={w} rows of K={k} need {smem} "
-                         "bytes of shared memory, more than a block has")
+    plan = probe_plan_copy(r, w, k, _sm_count(idx.device))
     out = torch.empty((r, k), dtype=torch.float32, device=idx.device)
     _launch("C", idx.device, _lib().bpmf_gather_copy, idx.data_ptr(),
-            table.data_ptr(), r, w, k, out.data_ptr())
+            table.data_ptr(), r, w, k, plan["blocks"], plan["chunk"],
+            plan["stages"], plan["cols"], out.data_ptr())
     return out
 
 
@@ -203,14 +229,12 @@ def _lib():
     from bpmf_tpu_torch.ops._build import load
 
     lib = load("gather_probe")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("bpmf_gather_rows", [p, p, i, i, i, i, i, p, p]),
                        ("bpmf_gather_lanes", [p, p, i, i, i, i, i, i, p, p]),
-                       ("bpmf_gather_copy", [p, p, i, i, i, p, p])):
+                       ("bpmf_gather_copy", [p, p, i, i, i, i, i, i, i, p, p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
-    lib.bpmf_gather_copy_smem.restype = ll
-    lib.bpmf_gather_copy_smem.argtypes = [i, i]
     return lib
 
 
@@ -232,7 +256,7 @@ def gather_sum_lanes_ref(idx: torch.Tensor, table_t: torch.Tensor) -> torch.Tens
 PROBES = {
     "A": ("A split warps, rows  ", gather_sum_rows, False),
     "B": ("B lanes, transposed  ", gather_sum_lanes, True),
-    "C": ("C cp.async rows      ", gather_sum_copy, False),
+    "C": ("C ring of row copies ", gather_sum_copy, False),
     "D": ("D torch index_select ", gather_sum_ref, False),
 }
 

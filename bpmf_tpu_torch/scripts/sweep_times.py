@@ -55,11 +55,15 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
   its chains;
 * ``probe``: the gather probes #9A, #9B, #9C and ``embedding_bag`` (the
   same function in one PyTorch call) at the JAX script's shapes (R = W =
-  512, NV = 32768, K = 32), at R = 8192, and B and ``embedding_bag`` at
-  NV = 81,270 (the ml-25M half-scale user count): ms per launch over 100
-  back-to-back launches (:func:`per_launch_ms`), and beside it the median
-  of 25 single calls, as ``chip_smoke.py``'s ``ms`` times them.  Any tree
-  whose wrappers are ``gather_sum_rows/lanes/copy(idx, table)`` times.
+  512, NV = 32768, K = 32), at R = 8192, B and ``embedding_bag`` at NV =
+  81,270 (the ml-25M half-scale user count), and A, C and
+  ``embedding_bag`` at W = 2000 (C there only where it has
+  ``probe_plan_copy``): ms per launch over 100 back-to-back launches
+  (:func:`per_launch_ms`), and beside it the median of 51 single calls,
+  as ``chip_smoke.py``'s ``ms`` times them, with the wrapper's host time
+  (the kernels' calls interleaved, :func:`single_calls`) and one launch's
+  device time alone (:func:`alone_ms`).  Any tree whose wrappers are
+  ``gather_sum_rows/lanes/copy(idx, table)`` times.
 """
 
 from __future__ import annotations
@@ -127,21 +131,70 @@ def per_launch_ms(fn, n=100, warmup=3):
                        f"enqueue {n} calls, longer than a {spin_ms:.3f} ms spin")
 
 
+def single_calls(fns, reps=51, warmup=3):
+    """Each of ``fns`` ({name: fn}) called alone ``reps`` times, the names
+    taken in turn (rotated every rep) so that each meets the host in the
+    same state: ``{name}_single_call_ms``, the median CUDA-event time
+    around the call as ``median_ms`` (and ``chip_smoke.py``'s ``ms``) take
+    it, and ``{name}_host_ms``, the median wall time until the call
+    returns: a wrapper's checks, plan, ``torch.empty`` and the launch's API
+    calls, what the single call spends before its kernel can start."""
+    import torch
+
+    names = list(fns)
+    for name in names:
+        for _ in range(warmup):
+            fns[name]()
+    single, host = ({name: [] for name in names} for _ in range(2))
+    for i in range(reps):
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            fns[name]()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            single[name].append(a.elapsed_time(b))
+    out = {}
+    for name in names:
+        out[f"{name}_single_call_ms"] = sorted(single[name])[reps // 2]
+        out[f"{name}_host_ms"] = sorted(host[name])[reps // 2]
+    return out
+
+
+def alone_ms(fn, reps=9):
+    """Median device time of one launch of ``fn`` on its own behind a spin
+    kernel (:func:`per_launch_ms` of one call): no host work in it, and
+    no launch before it whose tail it could overlap."""
+    times = sorted(per_launch_ms(fn, 1, warmup=1) for _ in range(reps))
+    return times[len(times) // 2]
+
+
 PROBE_CELLS = {"R512": (32, 32768, 512, 512, "ABC"),
                "R8192": (32, 32768, 8192, 512, "ABC"),
-               "NV81270": (32, 81270, 512, 512, "B")}
+               "NV81270": (32, 81270, 512, 512, "B"),
+               "W2000": (32, 32768, 512, 2000, "AC")}
 
 
 def probe_times(n=100):
-    """#9A/B/C and ``embedding_bag`` per launch (``*_ms``) and as single
-    calls (``*_single_call_ms``) at each of PROBE_CELLS (K, NV, R, W,
-    kernels), the probe's inputs from seed 0."""
+    """#9A/B/C and ``embedding_bag`` per launch (``*_ms``), one launch alone
+    on the device (``*_alone_ms``), and as single calls
+    (``*_single_call_ms``) with their host time (``*_host_ms``) at each of
+    PROBE_CELLS (K, NV, R, W, kernels), the probe's inputs from seed 0.  C
+    at W2000 only where #9C has a plan (``probe_plan_copy``: the ring),
+    since the earlier C held all W rows in shared memory and refuses that
+    W."""
     import torch
 
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
+    ring = hasattr(gp, "probe_plan_copy")
     out = {}
     for label, (k, nv, r, w, keys) in PROBE_CELLS.items():
+        if label == "W2000" and not ring:
+            keys = keys.replace("C", "")
         idx_np, table_np = gp.make_inputs(k=k, nv=nv, r=r, w=w)
         idx = torch.from_numpy(idx_np).to("cuda")
         table = torch.from_numpy(table_np).to("cuda")
@@ -151,10 +204,12 @@ def probe_times(n=100):
                "C": lambda: gp.gather_sum_copy(idx, table),
                "embedding_bag": lambda: torch.nn.functional.embedding_bag(
                    idx, table, mode="sum")}
+        names = (*keys, "embedding_bag")
         cell = {}
-        for key in (*keys, "embedding_bag"):
+        for key in names:
             cell[f"{key}_ms"] = per_launch_ms(fns[key], n)
-            cell[f"{key}_single_call_ms"] = median_ms(fns[key], 25, 3)
+            cell[f"{key}_alone_ms"] = alone_ms(fns[key])
+        cell.update(single_calls({key: fns[key] for key in names}))
         out[label] = cell
         del idx, table, table_t
     return out

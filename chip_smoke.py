@@ -106,8 +106,9 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               (R = W = 512, NV = 32768, K = 32): the probe's entry point
               (its chains of 10 launches, best of 3, CUDA events; D is
               torch's index_select), then each kernel against its plain
-              version at 1e-4 there, at R = 8192 and (B) at NV = 81,270
-              (its k-rows staged in two chunks): ms (and plain_ms,
+              version at 1e-4 there, at R = 8192, (B) at NV = 81,270
+              (its k-rows staged in two chunks) and (A, C) at W = 2000
+              (past the W the earlier C held): ms (and plain_ms,
               library_ms) the median of 25 single calls, as before,
               per_launch_ms the time per launch over 100 back-to-back
               launches behind a spin kernel (sweep_times.per_launch_ms),
@@ -1568,8 +1569,8 @@ def main():
     del codes, wb, lam_tri
 
     # 19. the gather probes (#9): the entry point at the JAX script's shapes,
-    # then each kernel against its plain version there, at R = 8192 and (B)
-    # at NV = 81,270
+    # then each kernel against its plain version there, at R = 8192, (B) at
+    # NV = 81,270 and (A, C) at W = 2000
     from bpmf_tpu_torch import read_matrix
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
@@ -1603,6 +1604,7 @@ def main():
         probe_bytes = 4 * (edges + rows_touched * pk + pr * pk)
         plan_a = gp.probe_plan_rows(pr, pw, pk, sms)
         plan_b = gp.probe_plan_lanes(pr, pw, pnv, pk, sms)
+        plan_c = gp.probe_plan_copy(pr, pw, pk, sms)
         # the bytes each design is modelled to read from L2 (no profiler
         # counter backs them): A and C each neighbour's row and idx once; B
         # its staged k-rows and idx once per k-row and chunk
@@ -1629,7 +1631,7 @@ def main():
             emit({"phase": "probe", "cell": label, "kernel": f"gather_probe {key}",
                   "shape": {"R": pr, "W": pw, "NV": pnv, "K": pk},
                   "tolerance": PROBE_TOL, **r,
-                  "plan": {"A": plan_a, "B": plan_b}.get(key),
+                  "plan": {"A": plan_a, "B": plan_b, "C": plan_c}[key],
                   "m_edges_per_s": edges / r["ms"] / 1e3,
                   "l2_gathered_bytes": 4 * edges * pk,
                   "l2_model_bytes": l2_model[key],
@@ -1652,8 +1654,10 @@ def main():
     probe = probe_cells["R512"]
     for key in "ABC":
         probe[key]["library_per_launch_ms"] = probe["library_per_launch_ms"]
-    for key in "AB":
+    for key in "ABC":
         probe[key]["per_launch_ms_R8192"] = probe_cells["R8192"][key]["per_launch_ms"]
+    for key in "AC":
+        probe[key]["per_launch_ms_W2000"] = probe_cells["W2000"][key]["per_launch_ms"]
     probe["B"]["per_launch_ms_NV81270"] = (
         probe_cells["NV81270"]["B"]["per_launch_ms"])
     library_ms = probe["library_ms"]
@@ -1944,7 +1948,10 @@ def main():
               library_ms=library_ms),
         entry("gather_probe C (cp.async rows into shared memory)",
               "gather_probe.cu", "scripts/gather_probe.py:107", "probe_C",
-              probe["C"], library_ms=library_ms),
+              {**probe["C"], "design": "a ring of mbarrier-tracked bulk "
+                                       "row copies, a producer warp per 32 "
+                                       "rows of a slot, four summing warps"},
+              library_ms=library_ms),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -876,13 +876,17 @@ def test_probe_wrappers_refuse_bad_input():
 @pytest.mark.parametrize("shape", [(32, 32768, 512, 512), (32, 1000, 7, 45),
                                    (64, 500, 9, 33), (12, 300, 5, 70),
                                    (32, 32768, 8192, 512), (32, 81270, 64, 512),
-                                   (32, 1000, 1, 1)])
+                                   (32, 1000, 1, 1), (10, 1000, 7, 45),
+                                   (32, 32768, 64, 2000), (64, 5000, 16, 1500),
+                                   (6, 300, 5, 70)])
 def test_probe_kernels_match_plain_on_card(cuda, shape):
     """#9 A, B and C against their plain versions: sums of W f32 terms in
     another order, PROBE_TOL.  A ragged W, K=64 (A: a half warp a row) and
-    K=12 (A masks a lane of four; C copies three 16-byte pieces per row),
-    R = 8192 (A at one warp a row), NV = 81,270 (B's k-row in two chunks,
-    each off 16-byte alignment at odd k) and one neighbour of one row."""
+    K=12 (A masks a lane of four; C copies 48-byte rows), R = 8192 (A at
+    one warp a row), NV = 81,270 (B's k-row in two chunks, each off 16-byte
+    alignment at odd k), one neighbour of one row, K=10 and K=6 (C's
+    4-byte copies) and W = 2000 at K=32 and 1500 at K=64 (C's ring past
+    the rows the earlier C held in shared memory)."""
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
     k, nv, r, w = shape
@@ -902,13 +906,30 @@ def test_probe_kernels_match_plain_on_card(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4000, 300, 3, 5), (16, 300, 300, 3)])
+def test_probe_copy_ring_matches_plain_on_card(cuda, shape):
+    """#9C's ring against the plain version where only C splits the work
+    so: K = 4000 (four slabs of up to 1024 columns) and W = 3 (a slot far
+    from full, each block's rows on the same few slots)."""
+    from bpmf_tpu_torch.scripts import gather_probe as gp
+
+    k, nv, r, w = shape
+    idx, table = _probe_inputs(k, nv, r, w, seed=k + w, device=cuda)
+    before = gp.launches["C"]
+    got = gp.gather_sum_copy(idx, table)
+    torch.cuda.synchronize()
+    assert gp.launches["C"] == before + 1
+    torch.testing.assert_close(got, gp.gather_sum_ref(idx, table), **PROBE_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 32768, 512, 512), (32, 81270, 64, 512),
                                    (12, 300, 5, 70)])
 def test_probe_kernels_repeat_bitwise_on_card(cuda, shape):
-    """#9A and #9B add in a fixed order (no atomics): two launches give the
-    same bits, on a 16-byte aligned table and on one a float off it (A's
-    4-byte pieces; B's k-rows staged with a head and a tail), and agree
-    with the plain version there too."""
+    """#9A, #9B and #9C add in a fixed order (no atomics): two launches give
+    the same bits, on a 16-byte aligned table and on one a float off it
+    (A's and C's 4-byte pieces; B's k-rows staged with a head and a tail),
+    and agree with the plain version there too."""
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
     k, nv, r, w = shape
@@ -919,7 +940,8 @@ def test_probe_kernels_repeat_bitwise_on_card(cuda, shape):
                    (shifted[0].view(nv, k).copy_(table),
                     shifted[1].view(k, nv).copy_(table.t()))):
         for key, fn, arg in (("A", gp.gather_sum_rows, t),
-                             ("B", gp.gather_sum_lanes, t_t)):
+                             ("B", gp.gather_sum_lanes, t_t),
+                             ("C", gp.gather_sum_copy, t)):
             before = gp.launches[key]
             first, second = fn(idx, arg), fn(idx, arg)
             torch.cuda.synchronize()
@@ -930,22 +952,26 @@ def test_probe_kernels_repeat_bitwise_on_card(cuda, shape):
 
 @pytest.mark.cuda
 def test_probe_kernels_refuse_on_card(cuda):
-    """A non-contiguous table is refused, and kernel C refuses a table off
-    16-byte alignment (cp.async) or a K it cannot copy in 16-byte pieces;
-    nothing launches."""
+    """A non-contiguous table is refused and nothing launches; kernel C
+    takes a table off 16-byte alignment and a K of 6, as ``kernel_c``
+    does (its 4-byte copies), launching once each and matching the plain
+    version."""
     from bpmf_tpu_torch.scripts import gather_probe as gp
 
     idx, table = _probe_inputs(32, 256, 4, 8, device=cuda)
     before = dict(gp.launches)
     with pytest.raises(ValueError, match="contiguous"):
         gp.gather_sum_rows(idx, table[:, :16])
+    assert gp.launches == before
     shifted = torch.empty(table.numel() + 1, device=cuda)[1:].view_as(table)
     shifted.copy_(table)
-    with pytest.raises(ValueError, match="aligned"):
-        gp.gather_sum_copy(idx, shifted)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        gp.gather_sum_copy(idx, table[:, :6].contiguous())
-    assert gp.launches == before
+    narrow = table[:, :6].contiguous()
+    for t in (shifted, narrow):
+        before = gp.launches["C"]
+        got = gp.gather_sum_copy(idx, t)
+        torch.cuda.synchronize()
+        assert gp.launches["C"] == before + 1
+        torch.testing.assert_close(got, gp.gather_sum_ref(idx, t), **PROBE_TOL)
 
 
 @pytest.mark.cuda

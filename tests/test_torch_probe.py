@@ -2,8 +2,8 @@
 Pallas kernels and its XLA probe, on the CPU at small shapes.
 
 ``scripts/gather_probe.py`` is loaded by path and its shape constants set
-to R=8, W=16, NV=64 (K stays 32), and for A and B also to a ragged W, R=1
-and K=12, the script loaded anew for each; each kernel runs in a
+to R=8, W=16, NV=64 (K stays 32), and for A, B and C also to a ragged W,
+R=1, K=12, K=10 and W=2000 (one row), the script loaded anew for each; each kernel runs in a
 ``pl.pallas_call`` built with the script's own specs, in interpret mode
 (kernel C, with its SMEM indices and DMA semaphore, under
 ``pltpu.InterpretParams``).  The port's wrappers take their plain versions
@@ -98,13 +98,17 @@ def test_probe_kernel_matches_jax(script, inputs, name, port):
 
 
 @pytest.mark.parametrize("r,w,nv,k", [(8, 37, 64, 32), (1, 16, 64, 32),
-                                      (8, 16, 64, 12)],
-                         ids=["ragged-W", "R1", "K12"])
+                                      (8, 16, 64, 12), (8, 37, 64, 10),
+                                      (1, 2000, 4096, 32)],
+                         ids=["ragged-W", "R1", "K12", "K10", "W2000"])
 @pytest.mark.parametrize("name,port", [("a", "gather_sum_rows"),
-                                       ("b", "gather_sum_lanes")])
+                                       ("b", "gather_sum_lanes"),
+                                       ("c", "gather_sum_copy")])
 def test_probe_kernel_matches_jax_shapes(name, port, r, w, nv, k):
-    """9A/9B beyond the script's own shapes: a ragged W (37), one item row
-    and K=12, the script loaded anew with those constants."""
+    """9A/9B/9C beyond the script's own shapes: a ragged W (37), one item
+    row, K=12, K=10 (no 16-byte copies) and W=2000 (past the rows a block
+    of the earlier #9C held in shared memory), the script loaded anew with
+    those constants."""
     script = _load_script(r, w, nv, k)
     idx, table = gp.make_inputs(k=k, nv=nv, r=r, w=w, seed=r + w + k)
     want = np.asarray(_jax_out(script, name, idx, table))
