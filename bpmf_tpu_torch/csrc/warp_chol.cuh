@@ -17,7 +17,9 @@
 //   lane's is fixed at compile time.  A K below the capacity is padded
 //   block-diagonally in registers (identity rows, zero rhs and noise): the
 //   padded rows draw exact zeros and are never written.  w needs
-//   max(round4(K(K+1)/2), lcol_floats(KP)) floats.
+//   max(round4(K(K+1)/2), lcol_floats(KP)) floats.  Its factorization and
+//   substitutions are solve_rows_regs<KP>, for a caller whose system is
+//   already in registers (the dense8 megakernel at capacities 40 and 44).
 // * solve_panels<R>, 32 < K <= 32R: the triangle stays in w with lanes over
 //   rows (row i on lane i % 32), factored in place in panels of kPanel
 //   columns: the panel's entries of the lane's rows in registers (pivots
@@ -72,29 +74,32 @@ __host__ __device__ __forceinline__ int lcol_base(int j) {
   return 4 * KP * q - 8 * q * (q - 1) + (j % 4) * (KP - 4 * q) - 4 * q;
 }
 
-// K <= KP <= 64: rows lane and lane + 32 of the system in registers (group
-// r holds row lane + 32r, entries 0 .. min(KP, 32(r+1)) - 1), the
-// megakernel's Cholesky and substitutions.  w holds the item's packed
-// system on entry and the factor's columns (lcol_base) after.
+// The row groups of capacity KP: row i on lane i % 32, group i / 32.
 template <int KP>
-__device__ __forceinline__ void solve_rows(float* w, int k, const ItemVecs& v) {
-  constexpr int R = (KP + 31) / 32;
+constexpr int kRowGroups = (KP + 31) / 32;
+
+// The Cholesky and both substitutions of solve_rows on a system already in
+// the lane's registers: g[r][j] = A_ij for row i = lane + 32r and j <= i
+// (entries above the diagonal are never read into L), y[r] and noise[r]
+// the rhs and noise of row i.  Rows k .. KP-1 must be padded (identity, zero
+// rhs and noise); only rows below k are written to out[i].  w (the warp's
+// area, lcol_floats(KP) floats) must be free: it becomes the factor's
+// columns.  The dense8 megakernel (dense8_sweep_solve.cu) calls it on the
+// Gram it summed in registers at capacities 40 and 44.
+template <int KP>
+__device__ __forceinline__ void solve_rows_regs(float (&g)[kRowGroups<KP>][KP],
+                                                float (&y)[kRowGroups<KP>],
+                                                const float (&noise)[kRowGroups<KP>],
+                                                float* w, int k, float* out) {
+  constexpr int R = kRowGroups<KP>;
   const int lane = threadIdx.x & 31;
-  float g[R][KP], y[R], noise[R], inv[R], u[R];
+  float inv[R], u[R];
   int colb[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    y[r] = i < k ? __ldg(v.rhs + i * v.r_s) : 0.f;
-    noise[r] = i < k ? __ldg(v.noise + i * v.n_s) : 0.f;
     inv[r] = u[r] = 0.f;
-    colb[r] = lcol_base<KP>(i);
-#pragma unroll
-    for (int j = 0; j < KP && j < 32 * (r + 1); ++j)
-      g[r][j] = (i < k && j <= i) ? w[tight_off(j, k) + i - j]
-                                  : (i == j ? 1.f : 0.f);  // padded: identity
+    colb[r] = lcol_base<KP>(lane + 32 * r);
   }
-  __syncwarp();  // w is the factor's columns from here
 
   // right-looking Cholesky: after step j, row i > j holds L_ij in g[.][j],
   // the owner of row j the inverse pivot, and column j of L lies in w,
@@ -158,8 +163,31 @@ __device__ __forceinline__ void solve_rows(float* w, int k, const ItemVecs& v) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = lane + 32 * r;
-    if (i < k) v.out[i] = u[r];
+    if (i < k) out[i] = u[r];
   }
+}
+
+// K <= KP <= 64: rows lane and lane + 32 of the system in registers (group
+// r holds row lane + 32r, entries 0 .. min(KP, 32(r+1)) - 1), the
+// megakernel's Cholesky and substitutions (solve_rows_regs).  w holds the
+// item's packed system on entry and the factor's columns (lcol_base) after.
+template <int KP>
+__device__ __forceinline__ void solve_rows(float* w, int k, const ItemVecs& v) {
+  constexpr int R = kRowGroups<KP>;
+  const int lane = threadIdx.x & 31;
+  float g[R][KP], y[R], noise[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    y[r] = i < k ? __ldg(v.rhs + i * v.r_s) : 0.f;
+    noise[r] = i < k ? __ldg(v.noise + i * v.n_s) : 0.f;
+#pragma unroll
+    for (int j = 0; j < KP && j < 32 * (r + 1); ++j)
+      g[r][j] = (i < k && j <= i) ? w[tight_off(j, k) + i - j]
+                                  : (i == j ? 1.f : 0.f);  // padded: identity
+  }
+  __syncwarp();  // w is the factor's columns from here
+  solve_rows_regs<KP>(g, y, noise, w, k, v.out);
 }
 
 // Entry r of a lane's row registers, chosen by a warp-uniform row group.

@@ -47,7 +47,6 @@ from bpmf_tpu_torch.ops.pallas_solve import (
 
 __all__ = [
     "BLOCK_MULTIPLE",
-    "FUSED_MAX_K",
     "HOISTED_K",
     "Quantization",
     "quantize_values",
@@ -68,10 +67,11 @@ __all__ = [
 
 BLOCK_MULTIPLE = 512  # both sides' padded_num must be a multiple of this
 # The megakernel's instances: #1 (products built in the kernel) for the
-# lane capacities 8, 16, 24 and 32 of one warp, so every K <= FUSED_MAX_K
-# runs on the next capacity up; #2 (a hoisted operand) for HOISTED_K only.
-INKERNEL_CAPACITIES = (8, 16, 24, 32)
-FUSED_MAX_K = INKERNEL_CAPACITIES[-1]
+# lane capacities of one warp, one row a lane up to 32 and two past it, so
+# every K the JAX package fuses (solve_fused_supported: K <= 41) runs on the
+# next capacity up; #2 (a hoisted operand) with its layout's offsets fixed
+# at HOISTED_K, and at any other K on the next capacity with a runtime K.
+INKERNEL_CAPACITIES = (8, 16, 24, 32, 40, 44)
 HOISTED_K = (16, 32)
 HOISTED_MAX_ROWS = 128 * 26  # gram_rhs_hoisted: 32 lanes x 26 float4 sums
 # The in-kernel Gram's (#3) register-row instances; past the last, K runs
@@ -89,8 +89,10 @@ def gram_row_floats(k: int) -> int:
 # operand), and of the megakernel with a hoisted operand (#2) by its
 # layout, counted where they launch; plain-version calls are not counted.
 # The in-kernel megakernel (#1) counts on dense8_sweep_solve.launches.
+# The megakernel's launches also count by instance (sweep_instance_key).
 gram_launches = {"inkernel": 0, "hoisted": 0}
 sweep_hoisted_launches = {"tight": 0, "aligned": 0}
+sweep_instance_launches: dict = {}
 
 
 class Quantization(NamedTuple):
@@ -181,6 +183,7 @@ def solve_fused_mode(value: str = "fused") -> str:
     return {"fused": "tight", "fused_aligned": "aligned"}.get(value, "split")
 
 
+@functools.cache
 def solve_fused_supported(k: int, layout: str = "aligned") -> bool:
     """The JAX package's VMEM gate for its megakernel (K <= 41 tight, 39
     aligned), copied because it decides the route.  Copy of
@@ -251,35 +254,26 @@ def d8_route(k: int, items: int, frozen: int, orientation: str, *,
     it ('hoisted').  ``solve`` and ``pt`` are the ``BPMF_D8_SOLVE`` and
     ``BPMF_D8_PT`` values, read once at setup.
 
-    The decision is the JAX package's (``parallel/spmd.py:846-892``): a
-    fused side streams the aligned operand under
-    ``BPMF_D8_SOLVE=fused_aligned``, else the tight one where
-    :func:`pt_mode` says hoisted (``BPMF_D8_PT=hoisted``, or at K=32 from
-    759,808 padded items, 1,484 blocks of 512, on), else builds it in the
-    kernel.  So the default route is the JAX package's at every K <= 32:
-    #1 there, but #2 at K=32 past that crossover.  Where the port has no
-    instance it takes the split pipeline instead, on the CPU as on the
-    card, so the CPU tests run the card's route.  Two deviations remain:
-
-    * K 33-41, which the JAX package fuses (:func:`solve_fused_supported`)
-      and one warp's lanes do not hold;
-    * the two knob routes ('fused_hoisted', 'fused_aligned') at K not in
-      :data:`HOISTED_K`.
-
-    The fused and split routes differ only in rounding
-    (``tests/test_dense8.py:264-291`` holds them to 1e-5 on rmse)."""
+    The decision is the JAX package's (``parallel/spmd.py:846-892``) at
+    every K: a fused side (K <= 41 in the tight layout, 39 in the aligned
+    one, :func:`solve_fused_supported`; no per-item prior) streams the
+    aligned operand under ``BPMF_D8_SOLVE=fused_aligned``, else the tight
+    one where :func:`pt_mode` says hoisted (``BPMF_D8_PT=hoisted``, or from
+    759,808 padded items at K=32, fewer past it), else builds it in the
+    kernel; any other side takes the split pipeline, its Gram's operand by
+    :func:`pt_mode`.  The CPU takes the same route as the card, so the CPU
+    tests run the card's route.  The fused and split routes differ only in
+    rounding (``tests/test_dense8.py:264-291`` holds them to 1e-5 on
+    rmse)."""
     if not tri_fused_supported(k, peritem):
         raise ValueError(f"K={k} is beyond the dense8 gate (tri_fused_supported)")
     layout = solve_fused_mode(solve)
     if layout != "split" and solve_fused_supported(k, layout) and not peritem:
         if layout == "aligned":
-            route = "fused_aligned"
-        elif pt_mode(items, frozen, k, True, orientation, pt) == "hoisted":
-            route = "fused_hoisted"
-        else:
-            route = "fused"
-        if k in HOISTED_K or (route == "fused" and k <= FUSED_MAX_K):
-            return route
+            return "fused_aligned"
+        if pt_mode(items, frozen, k, True, orientation, pt) == "hoisted":
+            return "fused_hoisted"
+        return "fused"
     return pt_mode(items, frozen, k, False, orientation, pt)
 
 
@@ -633,17 +627,19 @@ def dense8_sweep_solve(
     rounding.
 
     CPU tensors take the plain version (:func:`dense8_sweep_solve_ref`);
-    CUDA tensors take the CUDA kernel, which needs float32 and K <=
-    :data:`FUSED_MAX_K` for #1, K in :data:`HOISTED_K` for #2.  #1 runs K
-    on the next capacity of :data:`INKERNEL_CAPACITIES`, the system padded
-    block-diagonally: zero columns of the frozen items, the identity on
-    the prior's extra diagonal, zero prior rhs and noise; the padded lanes
-    then draw exact zeros and the result is sliced back to K.  The kernel
-    reads the frozen items, the operand and the noise item-major, so
-    ``v_t``, ``p_t`` and ``noise_t`` cost no copy when they are transposed
-    views of row-major tensors at a capacity K (as :func:`packed_tri_t`
-    gives); the result is the transposed view of a row-major [items,
-    capacity] tensor.
+    CUDA tensors take the CUDA kernel, which needs float32 and the JAX
+    package's gate (:func:`solve_fused_supported`: K <= 41, 39 with an
+    aligned ``p_t``).  The kernel runs K on the next capacity of
+    :data:`INKERNEL_CAPACITIES` (#2 at K in :data:`HOISTED_K` on its own
+    instance), the system padded block-diagonally: zero columns of the
+    frozen items, the identity on the prior's extra diagonal, zero prior
+    rhs and noise; the padded rows then draw exact zeros and the result is
+    sliced back to K.  #2 at a K of its own reads ``p_t``'s valid rows
+    through their index (:func:`_layout_rows`).  The kernel reads the
+    frozen items, the operand and the noise item-major, so ``v_t``, ``p_t``
+    and ``noise_t`` cost no copy when they are transposed views of
+    row-major tensors at a capacity K (as :func:`packed_tri_t` gives); the
+    result is the transposed view of a row-major [items, capacity] tensor.
 
     The kernel splits the frozen axis into the segments of
     :func:`sweep_plan`, from ``max_degree`` (the most ratings any item of
@@ -668,22 +664,22 @@ def dense8_sweep_solve(
         raise ValueError(f"dense8_sweep_solve: no kernel for device {codes.device}")
     if v_t.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel is float32-only, got {v_t.dtype}")
-    if p_t is None:
-        kp = next((c for c in INKERNEL_CAPACITIES if c >= k), None)
-    else:
-        kp = k if k in HOISTED_K else None
-    if kp is None:
+    gate = "tight" if p_t is None else layout
+    if not solve_fused_supported(k, gate):
         raise ValueError(
-            f"the CUDA kernel is built for K <= {FUSED_MAX_K} (#1) and K in "
-            f"{HOISTED_K} (#2, a hoisted operand), got K={k}"
-            + ("" if p_t is None else " with a p_t"))
+            f"the CUDA kernel takes the JAX package's megakernel gate (K <= 41 "
+            f"tight, 39 aligned), got K={k}"
+            + ("" if p_t is None else f" with a p_t in the {layout} layout"))
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous (row-major)")
+    operand = "inkernel" if p_t is None else layout
+    kp, runtime = sweep_instance(k, operand)
     dev = codes.device
     frozen = v_t.shape[1]
     plan = sweep_plan(items, frozen, kp, max_degree, _sm_count(dev))
     v, lam_c, prior, noise = _item_major(v_t, lam, prior_rhs, noise_t, kp)
     p = None if p_t is None else p_t.t().contiguous()  # [N, T]
+    p_rows = _entry_rows(k, layout, dev) if runtime else None
     out = torch.empty((items, kp), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = arrivals = None
@@ -696,7 +692,8 @@ def dense8_sweep_solve(
     err = _kernel()(codes.data_ptr(), codes.element_size(), r, c,
                     int(orientation == "rows"), kp,
                     v.data_ptr(), None if p is None else p.data_ptr(),
-                    0 if p is None else p.shape[1], int(layout == "aligned"),
+                    None if p_rows is None else p_rows.data_ptr(),
+                    0 if p is None else p.shape[1], int(layout == "aligned"), k,
                     lam_c.data_ptr(), prior.data_ptr(), noise.data_ptr(),
                     cs, cb, alpha, plan.segments, plan.tiles_per_segment,
                     None if partial is None else partial.data_ptr(),
@@ -709,10 +706,46 @@ def dense8_sweep_solve(
         dense8_sweep_solve.launches += 1
     else:
         sweep_hoisted_launches[layout] += 1
+    key = sweep_instance_key(k, operand)
+    sweep_instance_launches[key] = sweep_instance_launches.get(key, 0) + 1
     return out[:, :k].t()
 
 
 dense8_sweep_solve.launches = 0  # #1's CUDA launches (not plain-version calls)
+
+
+@functools.cache
+def sweep_instance(k: int, operand: str) -> tuple[int, bool]:
+    """(capacity, runtime K) of the megakernel instance that runs K with
+    ``operand`` ('inkernel': #1; 'tight', 'aligned': #2 in that layout):
+    #2 at K in :data:`HOISTED_K` on its own instance, else the next
+    capacity of :data:`INKERNEL_CAPACITIES`, #2 there with a runtime K."""
+    if operand != "inkernel" and k in HOISTED_K:
+        return k, False
+    kp = next((c for c in INKERNEL_CAPACITIES if c >= k), None)
+    if kp is None:
+        raise ValueError(f"K={k} is past the megakernel's largest capacity "
+                         f"{INKERNEL_CAPACITIES[-1]}")
+    return kp, operand != "inkernel"
+
+
+@functools.cache
+def sweep_instance_key(k: int, operand: str) -> str:
+    """The name of the instance that runs K with ``operand`` in
+    :data:`sweep_instance_launches`: '<operand>_c<capacity>', or
+    '<layout>_k<K>' for #2's instances at :data:`HOISTED_K`."""
+    kp, runtime = sweep_instance(k, operand)
+    return (f"{operand}_c{kp}" if operand == "inkernel" or runtime
+            else f"{operand}_k{k}")
+
+
+@functools.cache
+def _entry_rows(k: int, layout: str, device: torch.device) -> torch.Tensor:
+    """int32 [K(K+1)/2]: the row of the hoisted operand in ``layout`` that
+    holds each packed entry, in the tight order (:func:`_layout_rows`), as
+    #2 at a runtime K reads it."""
+    return torch.as_tensor(_layout_rows(k, layout)[0], dtype=torch.int32,
+                           device=device)
 
 
 def _item_major(v_t, lam, prior_rhs, noise_t, kp):
@@ -740,8 +773,8 @@ def _kernel():
     fn = load("dense8_sweep_solve").bpmf_dense8_sweep_solve
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = ctypes.c_int
-    fn.argtypes = [p, i, i, i, i, i, p, p, i, i, p, p, p, f, f, f, i, i, p, p,
-                   p, p]
+    fn.argtypes = [p, i, i, i, i, i, p, p, p, i, i, i, p, p, p, f, f, f, i, i,
+                   p, p, p, p]
     return fn
 
 

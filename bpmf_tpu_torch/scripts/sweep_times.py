@@ -2,7 +2,7 @@
 checkouts of this repository on one card.
 
     python bpmf_tpu_torch/scripts/sweep_times.py [--root DIR] [--label NAME]
-        [--legs tall,ml1m,random,split,blast,hoisted,probe]
+        [--legs tall,ml1m,random,wide,instances,split,blast,hoisted,probe]
 
 Imports ``bpmf_tpu_torch`` from DIR (default: the checkout this file lies
 in), so one copy of the script times any tree whose megakernel has the
@@ -27,8 +27,17 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
 * ``ml1m``: the ml-1m synth at K=32 (#1 on both sides): ms/iter, and #1 on
   the users (rows) and on the movies (cols) on the chain's last state;
 * ``random``: #1 and #2 (tight, aligned) at the padded ml-1m shape
-  [6144, 4096], K=32, on random codes 1..5 at ~4% (the inputs of
-  ``chip_smoke.py`` phase 3), rows + cols;
+  [6144, 4096], K=32 and K=16, on random codes 1..5 at ~4% (the inputs
+  of ``chip_smoke.py`` phase 3), rows + cols;
+* ``wide``: the ml-1m synth and the chembl synth (167,000 x 360) at K=40:
+  ms/iter after a warm-up chunk, and each side's route (the megakernel,
+  #1 and #2 at a runtime K on the capacity 40, where the tree fuses K=40;
+  else the split pipeline);
+* ``instances`` (trees with ``ops.dense8.sweep_instance`` only): the
+  megakernel's instances per launch on random codes at [6144, 4096] and
+  on light [167424, 512] and heavy [1024, 4096] items: #2 at K=16/32 on
+  its own instance and on the runtime-K one, #1 and #2 tight at K=40
+  (capacity 40) and 41 (44), #2 aligned at K=39 (:func:`instance_times`);
 * ``split``: the split pipeline (#3/#4 + #5).  The chembl synth (167,000 x
   360, seed 77) at K=64 (the compounds on #4 + #5, the proteins on #3 +
   #5) and the ml-1m synth at K=64 (#3 + #5 on both sides): ms/iter after a
@@ -258,33 +267,125 @@ def sweep_timer(sampler, side, reps):
 
 def random_times(reps=25):
     """#1 and #2 on random codes, rows + cols, as chip_smoke.py's phase 3
-    draws them (its seeds 0 and 1)."""
+    draws them (its seeds 0 and 1), at K=32 (``<operand>_ms``) and on the
+    K=16 instances (``k16_<operand>_ms``): the median single call, and
+    (``..._per_launch_ms``) the device time per launch over 100 launches
+    behind a spin kernel, which the wrapper's host work does not pace."""
     import torch
 
     from bpmf_tpu_torch.ops import dense8 as d8
 
-    total = {"inkernel": 0.0, "tight": 0.0, "aligned": 0.0}
+    out = {}
     dev = torch.device("cuda")
-    for seed, orientation in enumerate(("rows", "cols")):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        shape = (6144, 4096)
-        codes = torch.where(torch.rand(shape, generator=g, device=dev) < 0.04,
+    for k, prefix in ((32, ""), (16, "k16_")):
+        total = {"inkernel": 0.0, "tight": 0.0, "aligned": 0.0}
+        launch = dict.fromkeys(total, 0.0)
+        for seed, orientation in enumerate(("rows", "cols")):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            shape = (6144, 4096)
+            codes = torch.where(torch.rand(shape, generator=g, device=dev) < 0.04,
+                                torch.randint(1, 6, shape, generator=g, device=dev),
+                                0).to(torch.int8)
+            items, frozen = shape if orientation == "rows" else shape[::-1]
+            g = torch.Generator(device=dev).manual_seed(seed + 100)
+            v_t = 0.5 * torch.randn((k, frozen), generator=g, device=dev)
+            w = torch.randn((k, k), generator=g, device=dev)
+            lam = w @ w.T / k + torch.eye(k, device=dev)
+            prior_rhs = torch.randn((k, 1), generator=g, device=dev)
+            noise_t = torch.randn((k, items), generator=g, device=dev)
+            for name in total:
+                p_t = (None if name == "inkernel"
+                       else d8.packed_tri_t(v_t, aligned=name == "aligned"))
+                def call():
+                    return d8.dense8_sweep_solve(
+                        codes, p_t, v_t, lam, prior_rhs, noise_t, 2.0, -7.2, 2.0,
+                        orientation, layout=name if p_t is not None else "aligned")
+                total[name] += median_ms(call, reps)
+                launch[name] += per_launch_ms(call)
+        out.update({f"{prefix}{name}_ms": ms for name, ms in total.items()})
+        out.update({f"{prefix}{name}_per_launch_ms": ms for name, ms in launch.items()})
+    return out
+
+
+def instance_times():
+    """The megakernel's instances per launch (:func:`per_launch_ms`), on the
+    ``rows`` side of random codes at the padded ml-1m shape [6144, 4096]
+    (4%), of light items [167424, 512] (0.7%, about 3.6 ratings an item,
+    the chembl compounds' shape) and of heavy ones [1024, 4096] (50%,
+    about 2,048 an item): #1 and #2 (tight, aligned) at K = 16 and 32, #2
+    both on its own instance and forced onto the runtime-K one of the same
+    capacity (with the largest difference between the two draws), #1 and
+    #2 tight at K=40 (capacity 40) and K=41 (44), #2 aligned at K=39.
+    Needs a tree with ``ops.dense8.sweep_instance``."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    dev = torch.device("cuda")
+    own = d8.HOISTED_K
+    out = {}
+
+    def force(hoisted_k):
+        d8.HOISTED_K = hoisted_k
+        d8.sweep_instance.cache_clear()
+        d8.sweep_instance_key.cache_clear()
+
+    for tag, shape, density in (("ml1m", (6144, 4096), 0.04),
+                                ("light", (167424, 512), 0.007),
+                                ("heavy", (1024, 4096), 0.5)):
+        g = torch.Generator(device=dev).manual_seed(3)
+        codes = torch.where(torch.rand(shape, generator=g, device=dev) < density,
                             torch.randint(1, 6, shape, generator=g, device=dev),
                             0).to(torch.int8)
-        items, frozen = shape if orientation == "rows" else shape[::-1]
-        g = torch.Generator(device=dev).manual_seed(seed + 100)
-        v_t = 0.5 * torch.randn((32, frozen), generator=g, device=dev)
-        w = torch.randn((32, 32), generator=g, device=dev)
-        lam = w @ w.T / 32 + torch.eye(32, device=dev)
-        prior_rhs = torch.randn((32, 1), generator=g, device=dev)
-        noise_t = torch.randn((32, items), generator=g, device=dev)
-        for name in total:
-            p_t = (None if name == "inkernel"
-                   else d8.packed_tri_t(v_t, aligned=name == "aligned"))
-            total[name] += median_ms(lambda: d8.dense8_sweep_solve(
-                codes, p_t, v_t, lam, prior_rhs, noise_t, 2.0, -7.2, 2.0,
-                orientation, layout=name if p_t is not None else "aligned"), reps)
-    return {f"{name}_ms": ms for name, ms in total.items()}
+        items, frozen = shape
+        for k in (16, 32, 39, 40, 41):
+            v_t = (0.3 if tag != "heavy" else 0.05) * torch.randn(
+                (k, frozen), generator=g, device=dev)
+            w = torch.randn((k, k), generator=g, device=dev)
+            lam = w @ w.T / k + torch.eye(k, device=dev)
+            prior = torch.randn((k, 1), generator=g, device=dev)
+            noise = torch.randn((k, items), generator=g, device=dev)
+            operands = (("aligned",) if k == 39 else ("inkernel", "tight")
+                        if k > 32 else ("inkernel", "tight", "aligned"))
+            for operand in operands:
+                p_t = (None if operand == "inkernel"
+                       else d8.packed_tri_t(v_t, aligned=operand == "aligned"))
+                ways = ((own, ""), ((), "_runtime")) if k in own and p_t is not None \
+                    else ((own, ""),)
+                got = {}
+                for hoisted_k, suffix in ways:
+                    force(hoisted_k)
+                    def call():
+                        return d8.dense8_sweep_solve(
+                            codes, p_t, v_t, lam, prior, noise, 2.0, -7.2, 2.0,
+                            "rows", layout="tight" if p_t is None else operand)
+                    got[suffix] = call()
+                    key = f"{tag}_k{k}_{operand}{suffix}"
+                    out[key + "_ms"] = per_launch_ms(call)
+                    out[key + "_instance"] = d8.sweep_instance_key(k, operand)
+                if len(got) > 1:
+                    out[f"{tag}_k{k}_{operand}_runtime_max_diff"] = float(
+                        (got[""] - got["_runtime"]).abs().max())
+                force(own)
+    return out
+
+
+def wide_times(bpmf, cfg, train, test):
+    """The K=40 chains: the ml-1m synth and the chembl synth (167,000 x 360,
+    seed 77), ms/iter after a warm-up chunk and the routes each side took
+    (one megakernel launch a side where the tree fuses K=40, the split
+    pipeline where it does not)."""
+    from bpmf_tpu_torch import synth_chembl
+
+    out = {}
+    ctrain, ctest = synth_chembl()
+    for name, (tr, te, warm, iters) in (("ml1m_k40", (train, test, 50, 200)),
+                                        ("chembl_k40", (ctrain, ctest, 5, 20))):
+        s, ms = chain(bpmf, cfg, tr, te, warm, iters, 40)
+        out[name] = {"ms_per_iter": ms, "iterations": iters,
+                     "routes": {"movies": s.movies.route, "users": s.users.route}}
+        del s
+    return out
 
 
 SPLIT_CALLS = ("dense8_gram_rhs_rows", "dense8_gram_rhs_cols",
@@ -495,8 +596,8 @@ def main(argv=None):
     ap.add_argument("--tall-iters", type=int, default=10)
     ap.add_argument("--ml1m-iters", type=int, default=200)
     ap.add_argument("--legs", default="tall,ml1m,random",
-                    help="comma-separated: tall, ml1m, random, split, blast, "
-                         "hoisted, probe")
+                    help="comma-separated: tall, ml1m, random, wide, instances, "
+                         "split, blast, hoisted, probe")
     a = ap.parse_args(argv)
     legs = a.legs.split(",")
     root = os.path.abspath(a.root)
@@ -535,6 +636,10 @@ def main(argv=None):
         del s
     if "random" in legs:
         out["random"] = random_times()
+    if "wide" in legs:
+        out["wide"] = wide_times(BPMF, Config, train, test)
+    if "instances" in legs:
+        out["instances"] = instance_times()
     if "split" in legs:
         ctrain, ctest = synth_chembl()
         split = {"chembl_k64": split_chain(BPMF, Config, ctrain, ctest, 64, 5, 20),

@@ -6,8 +6,9 @@ the port builds, is right and runs its paths on the card.
 
 Phases, each printing JSON lines:
   1. device   torch/CUDA versions, the card, its power limit
-  2. build    nvcc builds the four kernel libraries of bpmf_tpu_torch/csrc,
-              all at once
+  2. build    nvcc builds the five kernel libraries of bpmf_tpu_torch/csrc,
+              all at once; each kernel's registers and spill bytes
+              (ptxas)
   3. kernel   the megakernel (#1), and the megakernel streaming a hoisted
               operand (#2) in the tight and the 8-aligned layout, against
               their plain PyTorch versions at the padded ml-1m shape
@@ -16,7 +17,11 @@ Phases, each printing JSON lines:
               entry rated, three at 50%, the rest 1-4%); median times by
               CUDA events, beside the library chain (cuBLAS SGEMMs for the
               Gram and rhs, tri_combine, torch.linalg); every launch
-              repeated bitwise equal
+              repeated bitwise equal.  Then the instances past one row a
+              lane and #2 at a runtime K, a kernels-line row each: #1 at
+              K = 33, 40 (capacity 40), 41 (44), #2 tight at K = 24, 40 and
+              aligned at K = 10, 39, on random codes, and K=40 (39
+              aligned) on skewed codes
   4. main     BPMF on ml-1m synth (6040x3952, 1M ratings), K=32, f32, the
               schedule of bench.py: 4 chunks of 500 iterations through #1;
               rmse_avg must land within 0.01 of 0.5306 (the JAX package's
@@ -137,6 +142,18 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               same draws; the K=10 chain (the Julia reference's default) on
               #1, 2 chunks of 250, rmse_avg within 0.005 of the same chain
               under BPMF_D8_SOLVE=split
+  23. wide     the K=40 chains, one megakernel launch a side as in the JAX
+              package: ml-1m synth, 2 chunks of 100, #1 on both sides (the
+              capacity 40), 3 iterations equal to the plain chain, rmse_avg
+              within 0.005 of the same chain under BPMF_D8_SOLVE=split (#3
+              + #5); chembl synth (phase 9's data), 2 chunks of 20, the
+              compounds on #2 (tight, runtime K=40), the proteins on #1,
+              finite and 3 iterations equal to the plain chain; then
+              ml-1m at K=41 (#1 on the capacity 44), at K=24 under
+              BPMF_D8_PT=hoisted, K=10 and K=39 under
+              BPMF_D8_SOLVE=fused_aligned (#2 at a runtime K on the
+              capacities 24, 16 and 40), 2 chunks of 50, finite; every
+              chain's launches counted by kernel and by instance
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -194,6 +211,11 @@ TALL_BAND = 0.005                # two routes of one chain, other rounding
 RMSE_AVG_ML25M_HALF = 1.0902     # BENCH_r05.json, the ml-25M half-scale leg
 OFFGRID_BAND = 0.005             # two routes of one chain, other rounding
 GRID_BAND = 0.005                # the same, for phase 22's chains
+WIDE_BAND = 0.005                # the same, for phase 23's K=40 chains
+# Phase 3's rows of the megakernel past one row a lane (#1 at K 33-41, on
+# the capacities 40 and 44) and of #2 at a runtime K: (operand, K)
+WIDE = (("inkernel", 33), ("inkernel", 40), ("inkernel", 41), ("tight", 24),
+        ("tight", 40), ("aligned", 10), ("aligned", 39))
 CS16 = 1 / 64                    # int16 kernel inputs: cs = 2 * CS16 keeps
                                  # cs*code + cb of codes up to 255 near the
                                  # int8 inputs' weights
@@ -236,6 +258,24 @@ TINY_TEST = [(1, 1, 5.0), (3, 1, 1.0)]
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_summary(report):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    ``-Xptxas -v`` report of one library's build."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
 
 
 def median_ms(fn, reps=25, warmup=3):
@@ -319,10 +359,16 @@ class Counts:
 
     def reset(self):
         self.d8.dense8_sweep_solve.launches = 0
+        self.d8.sweep_instance_launches.clear()
         for d in (self.d8.sweep_hoisted_launches, self.d8.gram_launches,
                   self.ps.solve_launches, self.gp.launches):
             for key in d:
                 d[key] = 0
+
+    def instances(self):
+        """The megakernel's (#1, #2) launches by instance
+        (ops.dense8.sweep_instance_key), those that launched."""
+        return {k: c for k, c in self.d8.sweep_instance_launches.items() if c}
 
     def read(self):
         """#1 (fused), #2 by layout (fused_tight, fused_aligned), #3/#4
@@ -618,9 +664,7 @@ def main():
         built = dict(zip(LIBS, pool.map(build, LIBS)))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": {n: os.path.relpath(lib, ROOT) for n, (lib, _) in built.items()},
-          "ptxas": {n: [l.strip() for l in rep.splitlines()
-                        if "registers" in l or "spill" in l]
-                    for n, (_, rep) in built.items()}})
+          "ptxas": {n: ptxas_summary(rep) for n, (_, rep) in built.items()}})
 
     # 3. the megakernels against plain: #1, and #2 in both layouts
     cs, cb, alpha = 2.0, -7.2, 2.0
@@ -694,10 +738,11 @@ def main():
               for name in ("inkernel", "tight", "aligned")}
 
     def sweep_record(name, args, orientation, inputs, k=K, headline=False,
-                     where=None, cs=cs, max_degree=None):
+                     where=None, cs=cs, max_degree=None, row=None):
         """#1 or #2 (``name``: inkernel, tight, aligned) against plain: one
         JSON line, and its times and bound under
-        ``<key>_<where>_<orientation>`` of its kernels-line row."""
+        ``<key>_<where>_<orientation>`` of its kernels-line row (``row``,
+        by default ``name``)."""
         p_t, layout = None, "aligned"   # layout: ignored by #1
         if name != "inkernel":
             p_t, layout = d8.packed_tri_t(args[1], aligned=name == "aligned"), name
@@ -707,9 +752,10 @@ def main():
               "operand": name, "inputs": inputs, "orientation": orientation,
               "shape": list(args[0].shape), "codes": str(args[0].dtype),
               "k": k, "density": float((args[0] != 0).float().mean()),
-              "max_degree": max_degree, "tolerance": KERNEL_TOL, **r,
+              "max_degree": max_degree, "tolerance": KERNEL_TOL,
+              "instance": d8.sweep_instance_key(k, name), **r,
               **bound(nbytes, flops), **tag})
-        res = result[name]
+        res = result[row or name]
         res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
         if where is None:
             where = f"k{k}" if inputs == "random codes" else inputs.replace(" ", "_")
@@ -738,6 +784,21 @@ def main():
         for name in ("inkernel", "tight", "aligned"):
             sweep_record(name, args, orientation, "skewed codes",
                          max_degree=frozen)
+    # the instances past one row a lane and #2 at a runtime K: a row of the
+    # kernels line each, random codes rows + cols; K=40 (39 aligned) also
+    # on skewed codes over segments
+    for key in WIDE:
+        result[key] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                       "library_ms": 0.0, "nbytes": 0, "flops": 0}
+    for name, k in WIDE:
+        for i, orientation in enumerate(("rows", "cols")):
+            args = kernel_inputs(orientation, seed=300 + 2 * k + i, k=k)
+            sweep_record(name, args, orientation, "random codes", k,
+                         headline=True, row=(name, k))
+            if k in (39, 40):
+                args = kernel_inputs(orientation, seed=360 + i, k=k, skewed=True)
+                sweep_record(name, args, orientation, "skewed codes", k,
+                             max_degree=args[1].shape[1], row=(name, k))
     del args
 
     # 4. main path, K=32, the megakernel
@@ -1897,6 +1958,113 @@ def main():
         del sampler
     assert abs(k10["fused"] - k10["split"]) <= GRID_BAND, k10
 
+    # 23. the megakernel past one row a lane: the K=40 chains, one kernel a
+    # side (#1 on the capacity 48, #2 at a runtime K), as the JAX package
+    # fuses them
+    wide_n = {}
+
+    def wide_chain(make, chunks_w, iters_w, routes, want_n, want_inst, **info):
+        """A chain on the megakernel's new instances: its routes, launch
+        counts (by kernel and by instance), finite metrics; returns its
+        sampler, metrics and the JSON line's fields."""
+        sampler, mets, chunk_s, setup_s, n = drive(make, counts, chunks_w, iters_w)
+        inst = counts.instances()
+        got = {"movies": sampler.movies.route, "users": sampler.users.route}
+        assert got == routes, got
+        assert n == want_n, n
+        assert inst == want_inst, inst
+        assert_finite(mets)
+        for key, c in n.items():
+            total[key] += c
+        for key, c in inst.items():
+            wide_n[key] = wide_n.get(key, 0) + c
+        return sampler, mets, {
+            **info, "routes": got, "iterations": chunks_w * iters_w,
+            "launches": n, "instances": inst, "rmse_avg": float(mets[-1].rmse_avg[-1]),
+            "rmse": float(mets[-1].rmse[-1]),
+            **per_iter_stats(sampler, chunk_s, iters_w), "setup_s": setup_s, **tag}
+
+    # ml-1m synth at K=40: #1 on both sides, against the split pipeline
+    w_iters, w_chunks = 100, 2
+    w_done = w_iters * w_chunks
+
+    def ml1m40():
+        return BPMF(Config(num_latent=40, burnin=2, nsims=w_done), train, test,
+                    out=devnull, device="cuda")
+
+    sampler, mets, line = wide_chain(
+        ml1m40, w_chunks, w_iters, {"movies": "fused", "users": "fused"},
+        launches(fused=2 * w_done), {d8.sweep_instance_key(40, "inkernel"): 2 * w_done},
+        dataset="ml-1m synth", k=40)
+    err = check_first_iterations(ml1m40, mets[0], counts)
+    del sampler
+    with env(BPMF_D8_SOLVE="split"):
+        ref_s, _, ref_line = wide_chain(
+            ml1m40, w_chunks, w_iters, {"movies": "inkernel", "users": "inkernel"},
+            launches(gram_inkernel=2 * w_done, solve_shared=2 * w_done), {},
+            dataset="ml-1m synth", k=40)
+    del ref_s
+    emit({"phase": "wide", "chain": "ml-1m k40", **line,
+          "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL,
+          "split_rmse_avg": ref_line["rmse_avg"],
+          "split_ms_per_iter": ref_line["ms_per_iter"], "band": WIDE_BAND})
+    assert abs(line["rmse_avg"] - ref_line["rmse_avg"]) <= WIDE_BAND, (
+        line["rmse_avg"], ref_line["rmse_avg"])
+
+    # chembl synth at K=40 (phase 9's data): the 167,424 padded compounds
+    # on #2 (tight, by the default pt_mode), the proteins on #1 over
+    # segments (the most-rated with 61,253 ratings)
+    ctrain, ctest = synth_chembl()
+    c_iters, c_chunks = 20, 2
+    c_done = c_iters * c_chunks
+
+    def chembl40():
+        return BPMF(Config(num_latent=40, burnin=2, nsims=c_done), ctrain, ctest,
+                    out=devnull, device="cuda")
+
+    sampler, mets, line = wide_chain(
+        chembl40, c_chunks, c_iters, {"movies": "fused", "users": "fused_hoisted"},
+        launches(fused=c_done, fused_tight=c_done),
+        {d8.sweep_instance_key(40, "inkernel"): c_done,
+         d8.sweep_instance_key(40, "tight"): c_done},
+        dataset="chembl synth, 167000 x 360", k=40)
+    err = check_first_iterations(chembl40, mets[0], counts)
+    emit({"phase": "wide", "chain": "chembl k40", **line,
+          "most_rated": {"compounds": int(sampler.users.degrees.max()),
+                         "proteins": int(sampler.movies.degrees.max())},
+          "segments": {side.name: d8.sweep_plan(
+              st.items.shape[0], fr.items.shape[0],
+              d8.sweep_instance(40, "inkernel")[0], side.max_degree,
+              d8._sm_count(sampler._codes.device)).segments
+              for side, st, fr in ((sampler.users, sampler.state_u, sampler.state_m),
+                                   (sampler.movies, sampler.state_m, sampler.state_u))},
+          "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL})
+    del sampler, ctrain, ctest
+
+    # the other new instances on a chain of their own: #1 at K=41 (capacity
+    # 44), #2 at K=24 (tight, capacity 24), K=10 and K=39 (aligned,
+    # capacities 16 and 40)
+    for k, knob, route, key, operand in (
+            (41, {}, "fused", "fused", "inkernel"),
+            (24, {"BPMF_D8_PT": "hoisted"}, "fused_hoisted", "fused_tight", "tight"),
+            (10, {"BPMF_D8_SOLVE": "fused_aligned"}, "fused_aligned", "fused_aligned",
+             "aligned"),
+            (39, {"BPMF_D8_SOLVE": "fused_aligned"}, "fused_aligned", "fused_aligned",
+             "aligned")):
+        inst = d8.sweep_instance_key(k, operand)
+        kn_iters, kn_chunks = 50, 2
+        with env(**knob):
+            sampler, mets, line = wide_chain(
+                lambda: BPMF(Config(num_latent=k, burnin=2,
+                                    nsims=kn_iters * kn_chunks),
+                             train, test, out=devnull, device="cuda"),
+                kn_chunks, kn_iters, {"movies": route, "users": route},
+                launches(**{key: 2 * kn_iters * kn_chunks}),
+                {inst: 2 * kn_iters * kn_chunks},
+                dataset="ml-1m synth", k=k, knob=knob)
+        emit({"phase": "wide", "chain": f"ml-1m k{k}", **line})
+        del sampler
+
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"
 
@@ -1909,6 +2077,18 @@ def main():
                 **work, "library_ms": library_ms}
 
     library8 = main8.pop("library_ms")
+    wide_rows = []
+    for name, k in WIDE:
+        inst = d8.sweep_instance_key(k, name)
+        assert wide_n.get(inst), (inst, wide_n)   # launched on a chain of phase 23
+        total[inst] = wide_n[inst]
+        what = ("in-kernel products" if name == "inkernel"
+                else f"hoisted operand, {name}")
+        wide_rows.append(entry(
+            f"dense8_sweep_solve ({what}, K={k}, instance {inst})",
+            "dense8_sweep_solve.cu",
+            "bpmf_tpu/ops/dense8.py:" + ("580" if name == "inkernel" else "509"),
+            inst, {**result[(name, k)], "k": k, "instance": inst}))
     emit({"kernels": [
         entry("dense8_sweep_solve (in-kernel products)", "dense8_sweep_solve.cu",
               "bpmf_tpu/ops/dense8.py:580", "fused", result["inkernel"]),
@@ -1952,6 +2132,7 @@ def main():
                                        "row copies, a producer warp per 32 "
                                        "rows of a slot, four summing warps"},
               library_ms=library_ms),
+        *wide_rows,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -133,26 +133,72 @@ def test_hoisted_kernel_matches_plain_on_card(cuda, k, orientation, layout,
 
 @pytest.mark.cuda
 def test_kernel_refuses_unbuilt_k(cuda):
-    """#1 holds K <= 32 in one warp's lanes; #2 is built for K 16 and 32."""
-    args = [torch.from_numpy(a).to(cuda) for a in _inputs(512, 512, 40, "rows", 0)]
-    with pytest.raises(ValueError, match="K=40"):
+    """The kernel takes the JAX package's megakernel gate and no more: K=42
+    for #1 (K <= 41) and K=40 with an aligned p_t (K <= 39) are refused,
+    naming K; K=41 with a tight p_t runs."""
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(512, 512, 42, "rows", 0)]
+    with pytest.raises(ValueError, match="K=42"):
         dense8_sweep_solve(args[0], None, *args[1:], CS, CB, ALPHA, "rows")
-    args = [torch.from_numpy(a).to(cuda) for a in _inputs(512, 512, 24, "rows", 0)]
-    p_t = d8.packed_tri_t(args[1])
-    with pytest.raises(ValueError, match="K=24 with a p_t"):
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(512, 512, 40, "rows", 0)]
+    p_t = d8.packed_tri_t(args[1], aligned=True)
+    with pytest.raises(ValueError, match="K=40 with a p_t in the aligned"):
         dense8_sweep_solve(args[0], p_t, *args[1:], CS, CB, ALPHA, "rows",
-                           layout="tight")
+                           layout="aligned")
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(512, 512, 41, "rows", 0)]
+    got = dense8_sweep_solve(args[0], d8.packed_tri_t(args[1]), *args[1:], CS, CB,
+                             ALPHA, "rows", layout="tight")
+    assert tuple(got.shape) == (41, 512) and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,layout", [(10, "tight"), (24, "tight"), (36, "tight"),
+                                      (40, "tight"), (41, "tight"),
+                                      (10, "aligned"), (39, "aligned")])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+@pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+def test_hoisted_runtime_k_matches_plain_on_card(cuda, k, layout, orientation,
+                                                 code_dtype):
+    """#2 at a K of its own (not 16 or 32), run on the next capacity with a
+    runtime K and row map: against its plain version at 1e-3, NaN in the
+    layout's padding rows (never read), the launch counted on its
+    instance."""
+    cs = CS if code_dtype == "int8" else CS16
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(1024, 1536, k, orientation, seed=k + 11,
+                             density=0.05, code_dtype=code_dtype)]
+    p_t = d8.packed_tri_t(args[1], aligned=layout == "aligned")
+    pad = torch.ones(p_t.shape[0], dtype=torch.bool, device=cuda)
+    pad[torch.as_tensor(d8._layout_rows(k, layout)[0], device=cuda)] = False
+    assert pad.any()
+    p_nan = p_t.clone()
+    p_nan[pad] = float("nan")
+    key = d8.sweep_instance_key(k, layout)
+    assert key.startswith(f"{layout}_c")
+    before = d8.sweep_instance_launches.get(key, 0)
+    got = dense8_sweep_solve(args[0], p_nan, *args[1:], cs, CB, ALPHA,
+                             orientation, layout=layout)
+    torch.cuda.synchronize()
+    assert d8.sweep_instance_launches[key] == before + 1
+    want = dense8_sweep_solve_ref(args[0], p_t, *args[1:], cs, CB, ALPHA,
+                                  orientation, layout)
+    assert tuple(got.shape) == (k, args[4].shape[1])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got, dense8_sweep_solve(args[0], p_nan, *args[1:], cs, CB,
+                                               ALPHA, orientation, layout=layout))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,code_dtype", [(8, "int8"), (10, "int8"),
                                           (24, "int8"), (16, "int16"),
-                                          (32, "int16")])
+                                          (32, "int16"), (33, "int8"),
+                                          (40, "int8"), (41, "int8"),
+                                          (40, "int16")])
 @pytest.mark.parametrize("orientation", ["rows", "cols"])
 def test_kernel_capacities_and_int16_on_card(cuda, k, code_dtype, orientation):
-    """#1 at every capacity (8, 24), K=10 on the capacity 16 (the system
-    padded block-diagonally), and int16 codes 1..255: against the plain
-    version at 1e-3."""
+    """#1 at every capacity (8, 24, and 40, 44: K 33-41, two rows a lane), K=10
+    on the capacity 16 (the system padded block-diagonally), and int16
+    codes 1..255: against the plain version at 1e-3."""
     cs = CS if code_dtype == "int8" else CS16
     args = [torch.from_numpy(a).to(cuda)
             for a in _inputs(1024, 1536, k, orientation, seed=k + 1,
@@ -259,15 +305,15 @@ def _check_segments(call, want, frozen, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [10, 24, 32])
+@pytest.mark.parametrize("k", [10, 24, 32, 40])
 @pytest.mark.parametrize("orientation", ["rows", "cols"])
 @pytest.mark.parametrize("code_dtype", ["int8", "int16"])
 def test_kernel_skewed_segments_on_card(cuda, k, orientation, code_dtype,
                                         monkeypatch):
     """#1 on skewed codes (one item with every frozen entry rated), at
-    every capacity (K=10 on 16, 24, 32), split over S segments: against
-    the plain version at 1e-3, S = 1 against S > 1 at 1e-3, repeated
-    launches bitwise equal."""
+    every capacity (K=10 on 16, 24, 32, K=40 on 40), split over S
+    segments: against the plain version at 1e-3, S = 1 against S > 1 at
+    1e-3, repeated launches bitwise equal."""
     cs = CS if code_dtype == "int8" else CS16
     args = [torch.from_numpy(a).to(cuda)
             for a in _skewed_inputs(1024, 4096, k, orientation, seed=k,
@@ -286,17 +332,21 @@ def test_kernel_skewed_segments_on_card(cuda, k, orientation, code_dtype,
 @pytest.mark.parametrize("orientation", ["rows", "cols"])
 @pytest.mark.parametrize("layout", ["tight", "aligned"])
 @pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+@pytest.mark.parametrize("k", [32, 40])
 def test_hoisted_kernel_skewed_segments_on_card(cuda, orientation, layout,
-                                                code_dtype, monkeypatch):
-    """#2 on skewed codes, K=32, NaN in the aligned layout's padding rows
-    (never read), split over S segments: as the test above."""
+                                                code_dtype, k, monkeypatch):
+    """#2 on skewed codes, K=32 (its own instance) and K=40 (39 aligned: the
+    capacity 40 with a runtime K), NaN in the layout's padding rows (never
+    read), split over S segments: as the test above."""
+    if layout == "aligned" and k == 40:
+        k = 39  # the JAX package's aligned gate
     cs = CS if code_dtype == "int8" else CS16
     args = [torch.from_numpy(a).to(cuda)
-            for a in _skewed_inputs(1024, 4096, 32, orientation, seed=7,
+            for a in _skewed_inputs(1024, 4096, k, orientation, seed=7,
                                     code_dtype=code_dtype)]
     p_t = d8.packed_tri_t(args[1], aligned=layout == "aligned")
     pad = torch.ones(p_t.shape[0], dtype=torch.bool, device=cuda)
-    pad[torch.as_tensor(d8._layout_rows(32, layout)[0], device=cuda)] = False
+    pad[torch.as_tensor(d8._layout_rows(k, layout)[0], device=cuda)] = False
     p_nan = p_t.clone()
     p_nan[pad] = float("nan")
     want = dense8_sweep_solve_ref(args[0], p_t, *args[1:], cs, CB, ALPHA,
@@ -788,6 +838,77 @@ def test_hoisted_chain_on_card_matches_cpu(cuda, knob, want, monkeypatch):
     for name, value in knob.items():
         monkeypatch.setenv(name, value)
     assert _card_vs_cpu(cuda, 32) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,knob,want", [
+    (40, {}, {"fused": 6}),
+    (33, {}, {"fused": 6}),
+    (40, {"BPMF_D8_PT": "hoisted"}, {"fused_tight": 6}),
+    (24, {"BPMF_D8_PT": "hoisted"}, {"fused_tight": 6}),
+    (39, {"BPMF_D8_SOLVE": "fused_aligned"}, {"fused_aligned": 6}),
+    (10, {"BPMF_D8_SOLVE": "fused_aligned"}, {"fused_aligned": 6}),
+    (40, {"BPMF_D8_SOLVE": "split"}, {"gram_inkernel": 6, "solve_shared": 6}),
+])
+def test_wide_chain_on_card_matches_cpu(cuda, k, knob, want, monkeypatch):
+    """The megakernel at the K the JAX package fuses past 32 (#1 on the
+    capacities 40 and 44) and #2 at K other than 16 and 32 (a runtime K), three
+    iterations against the CPU path; K=40 under BPMF_D8_SOLVE=split keeps
+    the split pipeline."""
+    for name, value in knob.items():
+        monkeypatch.setenv(name, value)
+    assert _card_vs_cpu(cuda, k) == want
+
+
+@pytest.mark.cuda
+def test_chembl_k40_heavy_items_to_float64_on_card(cuda):
+    """The chembl synth at K=40 (167,424 padded compounds x 512 proteins):
+    the compounds on #2 (tight, runtime K on the capacity 40), the
+    proteins on #1 (capacity 40, the most-rated with ~61k ratings over
+    many segments).  After 5 iterations each side's solve on the chain's
+    own codes and last state is held, item by item, to the float64 draw of
+    the same system within SOLVE_BOUND (u * kappa_F(A) * |u|_2 + 1e-5): the
+    proteins' systems are too ill-conditioned for two f32 orders to agree
+    at a flat 1e-3."""
+    import os
+
+    from bpmf_tpu_torch import Config, synth_chembl
+    from bpmf_tpu_torch.sampler import BPMF
+    from chip_smoke import d8_system64, solve_vs_f64
+
+    train, test = synth_chembl()
+    s = BPMF(Config(num_latent=40, nsims=5, burnin=2), train, test,
+             out=open(os.devnull, "w"), device=cuda)
+    s.setup()
+    assert (s.users.route, s.movies.route) == ("fused_hoisted", "fused")
+    before = _launches()
+    mets = s.run_chunk(5)
+    assert np.isfinite(mets.rmse).all()
+    n = {key: c - before[key] for key, c in _launches().items() if c - before[key]}
+    assert n == {"fused": 5, "fused_tight": 5}, n
+    codes, cs, cb, alpha = s._codes, s._d8_cs, s._d8_cb, s.cfg.alpha
+    for orientation, side, state, frozen in (
+            ("rows", s.users, s.state_u, s.state_m),
+            ("cols", s.movies, s.state_m, s.state_u)):
+        hp = state.hp
+        v_t = frozen.items.t()
+        items = state.items.shape[0]
+        noise_t = torch.randn((40, items), device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(1))
+        prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
+        p_t = d8.packed_tri_t(v_t) if side.route == "fused_hoisted" else None
+        got = dense8_sweep_solve(codes, p_t, v_t, hp.lambda_f, prior_rhs, noise_t,
+                                 cs, cb, alpha, orientation, layout="tight",
+                                 max_degree=side.max_degree)
+        x = codes if orientation == "rows" else codes.t()
+        f64 = torch.float64
+        v64 = v_t.to(f64).t()
+        rhs64 = (cs * (x.to(f64) @ v64) + cb * ((x != 0).to(f64) @ v64)
+                 + prior_rhs.t().to(f64))
+        worst, err, _ = solve_vs_f64(
+            d8_system64(codes, v_t, hp.lambda_f, alpha, orientation), rhs64,
+            noise_t.t(), [got.t()])
+        assert worst[0] <= 1.0, (side.name, worst, err)
 
 
 @pytest.mark.cuda

@@ -298,10 +298,11 @@ def test_sampler_split_matches_jax(monkeypatch):
     _chains_agree(ref, port)
 
 
-@pytest.mark.parametrize("k", [10, 24])
+@pytest.mark.parametrize("k", [10, 24, 40])
 def test_small_k_takes_megakernel(k):
-    """K=10 (the Julia reference's default) and K=24 take the megakernel,
-    as in the JAX package, and run."""
+    """K=10 (the Julia reference's default), K=24 and K=40 (past one row a
+    lane, which the JAX package fuses up to 41) take the megakernel, as in
+    the JAX package, and run."""
     train, test = _small_data()
     s = BPMF(Config(num_latent=k, nsims=2, burnin=1), train, test,
              device="cpu", out=open(os.devnull, "w"))
@@ -323,17 +324,16 @@ def _jax_route(k, items, frozen, orientation, peritem):
 KNOBS = [{}, {"BPMF_D8_PT": "hoisted"}, {"BPMF_D8_SOLVE": "fused_aligned"}]
 
 
-@pytest.mark.parametrize("k", [10, 16, 24, 32, 40, 64])
+@pytest.mark.parametrize("k", [10, 16, 24, 32, 33, 36, 40, 41, 64])
 @pytest.mark.parametrize("shape", [(6144, 4096), (167424, 512), (800256, 512)],
                          ids=["ml1m", "chembl", "tall"])
 def test_route_matches_jax(k, shape, monkeypatch):
     """Per side, from the copied gates and no data, with no knob,
     BPMF_D8_PT=hoisted and BPMF_D8_SOLVE=fused_aligned: fused/split, the
     megakernel's operand (in-kernel, tight or aligned) and the split
-    Gram's (in-kernel or hoisted) equal to the JAX package's, except where
-    the port has no instance: a K past 32 (K=40 here, which the JAX
-    package fuses) and the two hoisted-operand routes at K not in 16, 32
-    take split."""
+    Gram's (in-kernel or hoisted) equal to the JAX package's at every K,
+    the K 33-41 that the JAX package fuses past one row a lane among
+    them."""
     for var in ("BPMF_D8_SOLVE", "BPMF_D8_PT", "BPMF_D8_BLOCKS"):
         monkeypatch.delenv(var, raising=False)
     r, c = shape
@@ -348,15 +348,10 @@ def test_route_matches_jax(k, shape, monkeypatch):
                     solve, mode, pt = _jax_route(k, items, frozen, o, peritem)
                     got = d8.d8_route(k, items, frozen, o, peritem=peritem, **env)
                     where = (knob, items, frozen, o, peritem)
-                    fused = ("fused_aligned" if mode == "aligned"
-                             else "fused_hoisted" if pt == "hoisted"
-                             else "fused")
-                    if solve == "fused" and (
-                            k in d8.HOISTED_K
-                            or (fused == "fused" and k <= d8.FUSED_MAX_K)):
-                        want = fused
-                    elif solve == "fused":
-                        want = jax_d8.pt_mode(items, frozen, k, False, o)
+                    if solve == "fused":
+                        want = ("fused_aligned" if mode == "aligned"
+                                else "fused_hoisted" if pt == "hoisted"
+                                else "fused")
                     else:
                         want = pt
                     assert got == want, where
@@ -367,9 +362,8 @@ def test_route_matches_jax(k, shape, monkeypatch):
             (16, (800256, 512)): ("fused", "fused"),
             (10, (6144, 4096)): ("fused", "fused"),
             (24, (800256, 512)): ("fused", "fused"),
-            (40, (6144, 4096)): ("inkernel", "inkernel")}
-    if k == 40:  # the deviation that remains: the JAX package fuses K=40
-        assert _jax_route(k, r, c, "rows", False)[0] == "fused"
+            (40, (6144, 4096)): ("fused", "fused"),
+            (40, (167424, 512)): ("fused_hoisted", "fused")}
     if (k, shape) in want:  # (rows side, cols side), no knob
         assert (d8.d8_route(k, r, c, "rows"),
                 d8.d8_route(k, c, r, "cols")) == want[(k, shape)]
