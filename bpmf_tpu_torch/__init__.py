@@ -9,8 +9,11 @@ far: the one-device run in float32 or float64, any ratings and any K, on
 every Gram route of one device (the int8 dense stream with its megakernel
 and split pipeline, the dense and fused-dense adjacency, the degree
 buckets), every solver, the propagated posterior, the output files,
-checkpoints and the perf-debug surfaces (ROADMAP.md lists what is still
-to port).
+checkpoints and the perf-debug surfaces; and multi-device over
+``torch.distributed``, one process per rank (``--devices N``): the
+sharded dense8 sweep in gather and reduce mode, gather mode on the dense
+and bucketed routes, and the sharded evaluation (ROADMAP.md lists what is
+still to port).
 
     from bpmf_tpu_torch import BPMF, Config, synth_movielens
     train, test = synth_movielens()          # ml-1m-sized synthetic ratings

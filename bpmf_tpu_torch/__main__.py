@@ -4,4 +4,5 @@ import sys
 
 from bpmf_tpu_torch.cli import main
 
-sys.exit(main())
+if __name__ == "__main__":
+    sys.exit(main())

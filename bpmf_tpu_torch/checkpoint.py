@@ -13,6 +13,10 @@ The key: the JAX package stores its raw threefry key, which for
 writes the same pair and reads the seed back from it; resuming needs
 nothing else.  After a load across packages each continues with its own
 random stream: only the state is carried over.
+
+Across rank counts: a run of D ranks gathers its shards into that one
+file, which rank 0 writes; a run of any rank count resumes from it, each
+rank taking its shard of its own padded layout.
 """
 
 from __future__ import annotations
@@ -54,7 +58,11 @@ def seed_from_key(key) -> int:
 
 def save(path: str, sampler) -> None:
     """Write the sampler's full state to ``path`` (.npz; numpy appends the
-    suffix when it is missing)."""
+    suffix when it is missing).  At D > 1 every rank takes part in the
+    gather of the shards and rank 0 writes."""
+    state_m, state_u, est = sampler.state_host()
+    if sampler.rank != 0:
+        return
     payload = {
         "format_version": FORMAT_VERSION,
         "iter": sampler.iter,
@@ -66,8 +74,8 @@ def save(path: str, sampler) -> None:
         "rmse": sampler.rmse,
         "rmse_avg": sampler.rmse_avg,
     }
-    payload.update(state_to_numpy(sampler.state_m, sampler.state_u, sampler.est,
-                                  sampler.movies.maps, sampler.users.maps))
+    payload.update(state_to_numpy(state_m, state_u, est, sampler.movies.maps,
+                                  sampler.users.maps))
     np.savez_compressed(path, **payload)
 
 
@@ -96,7 +104,7 @@ def load(path: str, sampler) -> None:
         data = {n: v for n, v in data.items() if ".aggr_" not in n}
     state_m, state_u, est = state_from_numpy(
         data, sampler.movies.maps, sampler.users.maps, sampler.device,
-        sampler.dtype)
+        sampler.dtype, rank=sampler.rank)
     if aggregate and state_m.aggr_mu is None:
         k = cfg.num_latent
 

@@ -9,7 +9,15 @@ Usage: python -m bpmf_tpu_torch -n <MTX> -p <MTX> [-i N] [-b N] [-d K]
                                 [--dtype auto|float32|float64]
                                 [-o DIR] [-v] [--checkpoint FILE] [--resume FILE]
                                 [--ablate ...] [--profile]
+                                [--devices N] [--mode auto|gather|reduce]
                                 [--device cuda|cpu] ...
+
+``--devices N`` (N > 1) starts N ranks on this host, one process each, on a
+free local port: NCCL with one GPU a rank on ``cuda``, gloo on the CPU
+(``--device cpu``); ``0`` means every visible GPU (one rank on the CPU).
+Asking for more GPUs than there are is an error.  Under ``torchrun`` the
+ranks come from the environment instead.  Rank 0 prints and writes the
+files; the other ranks are silent.
 
 A flag whose feature is not ported yet stops the run with an error naming
 its ROADMAP.md entry.
@@ -18,10 +26,11 @@ its ROADMAP.md entry.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from bpmf_tpu_torch.config import Config
-from bpmf_tpu_torch.sampler import MULTI, unsupported
+from bpmf_tpu_torch.sampler import DIST, unsupported
 
 __all__ = ["build_parser", "config_from_args", "main"]
 
@@ -144,6 +153,7 @@ def config_from_args(args) -> Config:
 
 def main(argv=None) -> int:
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     if not args.train or not args.test:
         parser.print_help()
@@ -151,26 +161,67 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     problems = unsupported(cfg)
     if args.dist:
-        problems.append(f"--dist: not ported yet, see {MULTI}")
+        problems.append(f"--dist: not ported yet, see {DIST}")
     if args.platform:
         problems.append("--platform selects a JAX platform; this package "
                         "takes --device")
     if problems:
         parser.error("; ".join(problems))
 
-    from bpmf_tpu_torch.sampler import BPMF
+    from bpmf_tpu_torch.parallel.mesh import mesh_from_env, resolve_n_devices
 
-    out = open("bpmf_0.out", "w") if cfg.redirect else sys.stdout
+    mesh = mesh_from_env(args.device)  # a rank of torchrun
+    if mesh is not None:
+        try:
+            return _run(cfg, args.device, mesh)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     try:
-        BPMF(cfg, out=out, device=args.device).run()
-    except FileNotFoundError as e:
-        print(f"bpmf: error: file not found: {e}", file=sys.stderr)
-        return 1
-    except (ValueError, NotImplementedError) as e:
+        n = resolve_n_devices(cfg.n_devices, args.device)
+    except ValueError as e:
         print(f"bpmf: error: {e}", file=sys.stderr)
         return 1
+    if n <= 1:
+        return _run(cfg, args.device, None)
+    from bpmf_tpu_torch.parallel.launch import run_ranks
+
+    threads = (max(1, (os.cpu_count() or 1) // n)
+               if args.device == "cpu" else None)
+    try:
+        codes = run_ranks(_rank, n, argv, device=args.device, threads=threads)
+    except RuntimeError as e:
+        print(f"bpmf: error: {e}", file=sys.stderr)
+        return 1
+    return max(codes)
+
+
+def _rank(mesh, argv) -> int:
+    """One rank of ``--devices N`` (``parallel.launch.run_ranks``)."""
+    args = build_parser().parse_args(argv)
+    return _run(config_from_args(args), args.device, mesh)
+
+
+def _run(cfg: Config, device, mesh) -> int:
+    """The run of one device or of this rank of ``mesh``; rank 0 prints
+    (to ``bpmf_0.out`` under ``-r``) and reports the errors."""
+    from bpmf_tpu_torch.sampler import BPMF
+
+    rank0 = mesh is None or mesh.rank == 0
+    out = open("bpmf_0.out", "w") if cfg.redirect and rank0 else None
+    try:
+        BPMF(cfg, out=out, device=device, mesh=mesh).run()
+    except FileNotFoundError as e:
+        if rank0:
+            print(f"bpmf: error: file not found: {e}", file=sys.stderr)
+        return 1
+    except (ValueError, NotImplementedError) as e:
+        if rank0:
+            print(f"bpmf: error: {e}", file=sys.stderr)
+        return 1
     finally:
-        if out is not sys.stdout:
+        if out is not None:
             out.close()
     return 0
 

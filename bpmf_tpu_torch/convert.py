@@ -4,7 +4,8 @@ The exchange format is a dict of numpy arrays under the key names of
 ``bpmf_tpu/checkpoint.py`` (``movies.items``, ``movies.hp.mu``,
 ``users.cov``, ..., ``eval.pavg``, ``eval.pm2``): items and aggregates in
 ORIGINAL item order, ``aggr_prod`` as the full [num, K, K].  Either package
-can then compute from the same state.
+can then compute from the same state, at any device count: with ``rank``,
+:func:`state_from_numpy` gives one rank its shard of the padded layout.
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ __all__ = ["state_from_numpy", "state_to_numpy"]
 
 
 def _side_from_numpy(payload: dict, prefix: str, maps: SideMaps, device,
-                     dtype) -> SideState:
+                     dtype, rank: int) -> SideState:
     idx = maps.orig_to_padded
+    mine = slice(rank * maps.local_pad, (rank + 1) * maps.local_pad)
 
     def padded(arr):
         out = np.zeros((maps.padded_num,) + arr.shape[1:], arr.dtype)
         out[idx] = arr
-        return out
+        return out[mine]
 
     def dev(arr):
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=device)
@@ -56,15 +58,27 @@ def _side_from_numpy(payload: dict, prefix: str, maps: SideMaps, device,
 
 
 def state_from_numpy(payload: dict, maps_m: SideMaps, maps_u: SideMaps,
-                     device, dtype) -> tuple[SideState, SideState, EvalState]:
+                     device, dtype, rank: int = 0
+                     ) -> tuple[SideState, SideState, EvalState]:
     """(movies state, users state, eval state) on ``device`` from a
-    checkpoint-format dict; ``maps_*`` give each side's padded order."""
-    state_m = _side_from_numpy(payload, "movies", maps_m, device, dtype)
-    state_u = _side_from_numpy(payload, "users", maps_u, device, dtype)
-    est = EvalState(
-        pavg=torch.as_tensor(payload["eval.pavg"], dtype=dtype, device=device),
-        pm2=torch.as_tensor(payload["eval.pm2"], dtype=dtype, device=device),
-    )
+    checkpoint-format dict; ``maps_*`` give each side's padded order over
+    ``maps_*.n_devices`` ranks, and ``rank`` which rank's shard to keep: its
+    rows of each side's padded layout, and its 1/D of the test entries'
+    Welford state, padded to a multiple of D as the sampler shards the test
+    entries (all of both on one device)."""
+    state_m = _side_from_numpy(payload, "movies", maps_m, device, dtype, rank)
+    state_u = _side_from_numpy(payload, "users", maps_u, device, dtype, rank)
+    d = maps_u.n_devices
+
+    def entries(arr):
+        if d == 1:
+            return torch.as_tensor(arr, dtype=dtype, device=device)
+        per = -(-len(arr) // d)
+        arr = np.pad(arr, (0, per * d - len(arr)))[rank * per:(rank + 1) * per]
+        return torch.as_tensor(arr, dtype=dtype, device=device)
+
+    est = EvalState(pavg=entries(payload["eval.pavg"]),
+                    pm2=entries(payload["eval.pm2"]))
     return state_m, state_u, est
 
 

@@ -51,11 +51,15 @@ class SideState(NamedTuple):
 
 
 class EvalData(NamedTuple):
-    """Test ratings as COO triples, indices in padded order."""
+    """Test ratings as COO triples, indices in padded order.  ``valid``
+    marks the real entries when the triples are padded: the entry-sharded
+    evaluation of a multi-device run pads nnz_t to a multiple of the rank
+    count (``bpmf_tpu.models.bpmf.EvalData``)."""
 
     t_user: torch.Tensor  # [nnz_t] int64
     t_item: torch.Tensor  # [nnz_t] int64
     t_val: torch.Tensor   # [nnz_t]
+    valid: Optional[torch.Tensor] = None  # [nnz_t] 1 / 0
 
 
 class EvalState(NamedTuple):
@@ -182,17 +186,22 @@ def sweep_core(
 
 def predict(ev: EvalData, est: EvalState, user_items: torch.Tensor,
             movie_items: torch.Tensor, it: int, *, mean_rating: torch.Tensor,
-            burnin: int) -> tuple[EvalState, torch.Tensor, torch.Tensor]:
+            burnin: int, mesh=None, nnz_true: Optional[int] = None
+            ) -> tuple[EvalState, torch.Tensor, torch.Tensor]:
     """RMSE of the current sample and of the running posterior-mean
     prediction (Welford), Sys::predict (c++/sample.cpp:48-96).  With
     n = max(0, it - burnin), n == 0 overwrites the average with the current
-    prediction and resets M2 (c++/sample.cpp:84-86)."""
+    prediction and resets M2 (c++/sample.cpp:84-86).  With a ``mesh``
+    (``parallel.spmd.predict_sharded``) ``ev`` and ``est`` are this rank's
+    entries, the error sums are summed over ranks and divided by
+    ``nnz_true``, the entry count of the whole test set."""
     pred = (user_items[ev.t_user] * movie_items[ev.t_item]).sum(-1) + mean_rating
-    return _welford(ev, est, pred, it, burnin)
+    return _welford(ev, est, pred, it, burnin, mesh, nnz_true)
 
 
 def _welford(ev: EvalData, est: EvalState, pred: torch.Tensor, it: int,
-             burnin: int) -> tuple[EvalState, torch.Tensor, torch.Tensor]:
+             burnin: int, mesh=None, nnz_true: Optional[int] = None
+             ) -> tuple[EvalState, torch.Tensor, torch.Tensor]:
     """The Welford step of :func:`predict` for one iteration's predictions."""
     n = max(it - burnin, 0)
     if n == 0:
@@ -202,9 +211,18 @@ def _welford(ev: EvalData, est: EvalState, pred: torch.Tensor, it: int,
         delta = pred - est.pavg
         avg = est.pavg + delta / n
         m2 = est.pm2 + delta * (pred - avg)
-    nump = ev.t_val.shape[0]
-    rmse = torch.sqrt(((ev.t_val - pred) ** 2).sum() / nump)
-    rmse_avg = torch.sqrt(((ev.t_val - avg) ** 2).sum() / nump)
+    if ev.valid is None and mesh is None:
+        nump = ev.t_val.shape[0]
+        rmse = torch.sqrt(((ev.t_val - pred) ** 2).sum() / nump)
+        rmse_avg = torch.sqrt(((ev.t_val - avg) ** 2).sum() / nump)
+        return EvalState(pavg=avg, pm2=m2), rmse, rmse_avg
+    valid = 1.0 if ev.valid is None else ev.valid
+    se = torch.stack([(valid * (ev.t_val - pred) ** 2).sum(),
+                      (valid * (ev.t_val - avg) ** 2).sum()])
+    if mesh is not None:
+        se = mesh.all_reduce(se)
+    nump = nnz_true if nnz_true is not None else ev.t_val.shape[0]
+    rmse, rmse_avg = torch.sqrt(se / nump).unbind()
     return EvalState(pavg=avg, pm2=m2), rmse, rmse_avg
 
 

@@ -1,1 +1,2 @@
-"""Item layouts (partition) and half-sweeps (spmd), single device so far."""
+"""The multi-device layer: the mesh of ranks (mesh), starting them (launch),
+item layouts (partition) and half-sweeps (spmd)."""

@@ -13,11 +13,14 @@ must have identical shapes: buckets are built per device and then padded to
 the union of widths and the per-width maxima, stacked with a leading device
 axis that shard_map splits.
 
-Copy of ``bpmf_tpu/parallel/partition.py`` with the layouts of one-device
-gather mode: :class:`GatherLayout` (each device owns a shard of this side's
-items and the neighbor indices point into the OTHER side's padded global
-index space) and the dense adjacency block.  The halo and reduce layouts
-of the multi-device modes are still to port (ROADMAP.md Queue 1 #6).
+Copy of ``bpmf_tpu/parallel/partition.py`` with the layouts of gather mode
+at any device count: :class:`GatherLayout` (each device owns a shard of
+this side's items and the neighbor indices point into the OTHER side's
+padded global index space) and the dense adjacency blocks.  Every rank of a
+multi-device run builds the same maps and keeps only its own row of the
+stacked [D, ...] layouts on its device (``sampler.BPMF``; a dense block is
+built for that row alone, :func:`build_dense_block`).  The halo layout and
+the reduce layouts are still to port (ROADMAP.md Queue 1 #6, the rest).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ __all__ = [
     "GatherLayout",
     "build_gather_layout",
     "build_dense_layout",
+    "build_dense_block",
     "stack_buckets",
 ]
 
@@ -265,10 +269,22 @@ def build_dense_layout(
     the rest.  Absent ratings are exactly 0.0 (valid ratings are nonzero in
     every supported dataset, like Eigen sparse semantics in the reference).
     """
-    n_dev = maps.n_devices
-    out = np.zeros((n_dev, maps.local_pad, other_padded_num), np.float32)
+    return np.stack([
+        build_dense_block(m_csc, maps, other_orig_to_padded, other_padded_num, d)
+        for d in range(maps.n_devices)])
+
+
+def build_dense_block(
+    m_csc: sp.csc_matrix,
+    maps: SideMaps,
+    other_orig_to_padded: np.ndarray,
+    other_padded_num: int,
+    d: int,
+) -> np.ndarray:
+    """Device ``d``'s row of :func:`build_dense_layout`, [local_pad,
+    other_padded_num] float32, built alone."""
+    out = np.zeros((maps.local_pad, other_padded_num), np.float32)
     other_map = np.asarray(other_orig_to_padded, np.int64)
-    for d, ids in enumerate(maps.ids_per_dev):
-        sub = m_csc[:, ids].tocoo()  # rows: other orig, cols: local slot
-        out[d, sub.col, other_map[sub.row]] = sub.data.astype(np.float32)
+    sub = m_csc[:, maps.ids_per_dev[d]].tocoo()  # rows: other orig, cols: local slot
+    out[sub.col, other_map[sub.row]] = sub.data.astype(np.float32)
     return out

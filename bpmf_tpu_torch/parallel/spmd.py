@@ -1,12 +1,24 @@
 """Half-sweeps of the Gibbs chain (port of ``bpmf_tpu/parallel/spmd.py``).
 
-The single-device half-sweeps of every Gram route: the int8 dense stream
-(:func:`dense8_half_sweep`), the dense adjacency (:func:`dense_half_sweep`,
-:func:`dense_half_sweep_fused`) and the degree buckets in gather mode
-(:func:`gather_half_sweep`).  They keep their JAX names so that the
-multi-device variants (ROADMAP.md Queue 1 #6) can join them here; on one
-device the JAX package's ``all_gather`` and ``psum`` are identities, so
-none appears.
+The half-sweeps of every Gram route: the int8 dense stream on one device
+(:func:`dense8_half_sweep`) and sharded over ranks
+(:func:`dense8_half_sweep_sharded`), the dense adjacency
+(:func:`dense_half_sweep`, :func:`dense_half_sweep_fused`) and the degree
+buckets in gather mode (:func:`gather_half_sweep`), and the sharded
+evaluation (:func:`predict_sharded`).  They keep their JAX names.
+
+Multi-device (``mesh``, a :class:`~bpmf_tpu_torch.parallel.mesh.Mesh` of
+one process per rank): each rank holds its shard of both sides' items.
+Gather mode all-gathers the frozen side in front of the one-device body
+(``spmd.py:205``, ``:339``, ``:519``); the sharded dense8 sweep gathers the
+frozen movies on the users' sweep and reduce-scatters the partial Gram and
+rhs of its user rows on the movies' sweep (``spmd.py:934``).  Every sweep
+then sums (sum, prod, norm) over ranks in one ``all_reduce`` of one packed
+buffer, so the covariance is the exact global one, not the reference
+C++'s per-rank form.  With ``mesh=None`` (one device) there is no
+collective, as the JAX package's ``all_gather`` and ``psum`` are
+identities on one device.  Noise rows are keyed by original id, so a chain
+is the same at any rank count up to reduction order.
 
 ``ablate`` is the perf-debug knob (``Config.ablate``, comma-separated):
 ``nomatmul`` replaces the Gram and rhs by constants of the same shape,
@@ -24,7 +36,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from bpmf_tpu_torch.models.bpmf import SideState, aggr_prod_update, sweep_core
+from bpmf_tpu_torch.models.bpmf import (
+    EvalData,
+    EvalState,
+    SideState,
+    aggr_prod_update,
+    predict,
+    sweep_core,
+)
 from bpmf_tpu_torch.ops.cholsolve import get_solver
 from bpmf_tpu_torch.ops.dense8 import (
     FUSED_ROUTES,
@@ -42,12 +61,16 @@ from bpmf_tpu_torch.ops.pallas_solve import (
     tri_tight_pairs,
 )
 from bpmf_tpu_torch.ops.update import BucketDev, posterior_precision_rhs
+from bpmf_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
     "dense8_half_sweep",
+    "dense8_half_sweep_sharded",
     "dense_half_sweep",
     "dense_half_sweep_fused",
+    "exchange_stats",
     "gather_half_sweep",
+    "predict_sharded",
 ]
 
 
@@ -145,6 +168,77 @@ def dense8_half_sweep(
     return _finish(state, u, local_valid, hp, num, it, burnin)
 
 
+def dense8_half_sweep_sharded(
+    mesh: Mesh,
+    state: SideState,
+    codes: torch.Tensor,        # [R/D, C] this rank's user rows of the codes
+    other_items: torch.Tensor,  # [other local_pad, K] this rank's frozen shard
+    hp: HyperParams,
+    noise: torch.Tensor,        # [local_pad, K] N(0, I) rows, by orig id
+    it: int,
+    *,
+    num: int,
+    local_valid: torch.Tensor,  # [local_pad]
+    alpha: float,
+    burnin: int,
+    cs: float,
+    cb: float,
+    orientation: str,           # 'rows' (users sweep) | 'cols' (movies sweep)
+    route: str = "inkernel",    # the split route of the local shapes:
+                                # inkernel | hoisted (ops.dense8.d8_route)
+    prior_tri_t: Optional[torch.Tensor] = None,  # [T, local_pad]
+    prior_rhs_t: Optional[torch.Tensor] = None,  # [K, local_pad]
+    grouped: bool = False,
+    max_degree: Optional[int] = None,  # the most ratings an item has within
+                                       # this rank's codes
+) -> SideState:
+    """The int8 dense-stream half-sweep over ranks (``bpmf_tpu.parallel.
+    spmd.dense8_half_sweep_sharded``): the code array is sharded by user
+    rows, each rank streaming only its [R/D, C] shard.
+
+    * users (``rows``): the all_gather of the frozen movies, [C/D, K] to
+      [C, K], then the Gram kernel (#3, or #4 on a hoisted operand) on the
+      rank's rows;
+    * movies (``cols``): the Gram kernel over the rank's user rows gives
+      every movie's PARTIAL Gram and rhs, [T+K, C]; laid out as [D, T+K,
+      C/D], one reduce_scatter leaves each movie owner the sums of its
+      [T+K, C/D].
+
+    Then the split pipeline's tail: the prior combine and the packed-
+    triangle solve (#5; #6 with a per-item prior; #7 when ``grouped``), and
+    the stats summed over ranks.  The megakernels (#1/#2) do not run here:
+    the JAX package takes the split pipeline at D > 1 whatever
+    ``BPMF_D8_SOLVE`` says.  ``route`` is decided on the local shapes,
+    (R/D, C) for rows and (C, R/D) for cols, as the JAX package's
+    ``pt_mode`` sees them."""
+    if route not in ("inkernel", "hoisted"):
+        raise ValueError(f"the sharded dense8 sweep runs the split pipeline, "
+                         f"not route {route!r}")
+    if orientation == "rows":
+        v_t = mesh.all_gather(other_items).t()              # [K, C]
+        p_t = packed_tri_t(v_t) if route == "hoisted" else None
+        gram_t, rhs_t = dense8_gram_rhs_rows(codes, p_t, v_t, cs, cb,
+                                             max_degree=max_degree)
+    elif orientation == "cols":
+        v_t = other_items.t()                                # [K, R/D]
+        p_t = packed_tri_t(v_t) if route == "hoisted" else None
+        gram_t, rhs_t = dense8_gram_rhs_cols(codes, p_t, v_t, cs, cb,
+                                             max_degree=max_degree)
+        t_rows, k, cols = gram_t.shape[0], rhs_t.shape[0], gram_t.shape[1]
+        lp = cols // mesh.size
+        both = torch.cat([gram_t, rhs_t])                    # [T+K, C] partial
+        both = mesh.reduce_scatter(
+            both.reshape(t_rows + k, mesh.size, lp).transpose(0, 1)
+            .reshape(mesh.size * (t_rows + k), lp))          # [T+K, C/D]
+        gram_t, rhs_t = both[:t_rows], both[t_rows:]
+    else:
+        raise ValueError(f"bad orientation {orientation!r}")
+    rhs_t = _combine_prior_rhs(rhs_t, hp, prior_tri_t, prior_rhs_t, grouped)
+    u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(), alpha,
+                                 lam_tri_t=prior_tri_t, grouped=grouped).t()
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
+
+
 def _aligned_head(gram_t: torch.Tensor, k: int) -> torch.Tensor:
     """Rows 0..K-1 of the 8-aligned packed layout, [K, I], taken from a
     tight packed Gram: the entries the JAX package's ``nosolve`` reads as
@@ -159,14 +253,26 @@ def _aligned_head_rows(k: int, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
-def _finish(state: SideState, u, local_valid, hp, num, it, burnin) -> SideState:
-    """The side's new state from its new items [padded_num, K]: sum, prod,
-    norm over the real items, the covariance, and after burn-in the
-    posterior aggregates (``spmd.py`` after each shard_map body)."""
+def exchange_stats(mesh: Optional[Mesh], s, prod, norm):
+    """(sum [K], prod [K, K], norm []) summed over the ranks of ``mesh`` in
+    one ``all_reduce`` of one packed buffer (``reduce_sum_cov_norm``,
+    c++/mpi_common.h:44-50; the JAX package's three ``lax.psum``); unchanged
+    without a mesh."""
+    if mesh is None:
+        return s, prod, norm
+    k = s.shape[0]
+    buf = mesh.all_reduce(torch.cat([s, prod.reshape(-1), norm.reshape(1)]))
+    return buf[:k], buf[k:k + k * k].reshape(k, k), buf[k + k * k]
+
+
+def _finish(state: SideState, u, local_valid, hp, num, it, burnin,
+            mesh: Optional[Mesh] = None) -> SideState:
+    """The side's new state from its new items [local items, K]: sum, prod,
+    norm over the real items (over every rank's items with a mesh), the
+    covariance, and after burn-in the posterior aggregates (``spmd.py``
+    after each shard_map body)."""
     uv = u * local_valid[:, None]
-    s = uv.sum(0)
-    prod = uv.t() @ u
-    norm = (uv * u).sum()
+    s, prod, norm = exchange_stats(mesh, uv.sum(0), uv.t() @ u, (uv * u).sum())
     aggr_mu, aggr_prod = state.aggr_mu, state.aggr_prod
     if aggr_mu is not None and it >= burnin:
         aggr_mu = aggr_mu + uv
@@ -182,8 +288,9 @@ def _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod) -> SideState:
 
 def gather_half_sweep(
     state: SideState,
-    buckets: Sequence[BucketDev],  # this side's degree buckets
-    other_items: torch.Tensor,     # [num_other_pad, K] the frozen side
+    buckets: Sequence[BucketDev],  # this side's degree buckets (this rank's)
+    other_items: torch.Tensor,     # [num_other_pad, K] the frozen side (this
+                                   # rank's shard with a mesh)
     hp: HyperParams,
     noise: torch.Tensor,           # [sum of slots, K] N(0, I) by orig id
     it: int,
@@ -199,26 +306,32 @@ def gather_half_sweep(
     prop_mu: Optional[torch.Tensor] = None,      # [num_pad, K]
     prop_lambda: Optional[torch.Tensor] = None,  # [num_pad, K, K]
     ablate: str = "",                            # perf-debug (Config.ablate)
+    mesh: Optional[Mesh] = None,
 ) -> SideState:
-    """Value-exchange half-sweep over the degree buckets on one device
-    (``bpmf_tpu.parallel.spmd.gather_half_sweep``): the per-bucket Gram,
-    one combine and solve (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`),
-    the scatter, the stats.  The frozen side is already whole on one
-    device, so there is no all_gather, and no halo exchange."""
+    """Value-exchange half-sweep over the degree buckets
+    (``bpmf_tpu.parallel.spmd.gather_half_sweep``): with a mesh, the
+    all_gather of the frozen side; then the per-bucket Gram, one combine
+    and solve (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`), the
+    scatter, and the stats summed over ranks.  The halo ring that the JAX
+    package can take in place of the all_gather is not ported: it moves
+    the same values."""
+    if mesh is not None:
+        other_items = mesh.all_gather(other_items)
     items, s, prod, norm, aggr_mu, aggr_prod = sweep_core(
         state.items, state.aggr_mu, state.aggr_prod, buckets, other_items,
         hp, noise, it, mean_rating=mean_rating, alpha=alpha, burnin=burnin,
         splits=splits, diagonal_only=diagonal_only,
         strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
         prop_lambda=prop_lambda, ablate=ablate)
+    s, prod, norm = exchange_stats(mesh, s, prod, norm)
     return _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod)
 
 
 def dense_half_sweep(
     state: SideState,
-    a_ind: torch.Tensor,        # [padded_num, other_pad] 0/1 indicator
-    a_val: torch.Tensor,        # [padded_num, other_pad] (r - mean) * alpha
-    other_items: torch.Tensor,  # [other_pad, K]
+    a_ind: torch.Tensor,        # [local items, other_pad] 0/1 indicator
+    a_val: torch.Tensor,        # [local items, other_pad] (r - mean) * alpha
+    other_items: torch.Tensor,  # [other_pad, K] (this rank's shard with a mesh)
     hp: HyperParams,
     noise: torch.Tensor,        # [padded_num, K] N(0, I) by orig id
     it: int,
@@ -230,16 +343,20 @@ def dense_half_sweep(
     diagonal_only: bool = False,
     strict_reference: bool = True,
     solver: str = "smart",
-    prop_mu: Optional[torch.Tensor] = None,      # [padded_num, K]
-    prop_lambda: Optional[torch.Tensor] = None,  # [padded_num, K, K]
+    prop_mu: Optional[torch.Tensor] = None,      # [local items, K]
+    prop_lambda: Optional[torch.Tensor] = None,  # [local items, K, K]
     ablate: str = "",                            # perf-debug (Config.ablate)
+    mesh: Optional[Mesh] = None,
 ) -> SideState:
     """Dense-adjacency half-sweep (``bpmf_tpu.parallel.spmd.
-    dense_half_sweep``): computeMuLambda as two matmuls, the Gram against
-    the frozen side's row-wise outer products [N, K*K] and the rhs against
-    the frozen side itself; then the combine, the batched solve of the
-    configured solver, the stats.  Every item is recomputed in place."""
+    dense_half_sweep``): with a mesh, the all_gather of the frozen side;
+    computeMuLambda as two matmuls, the Gram against the frozen side's
+    row-wise outer products [N, K*K] and the rhs against the frozen side
+    itself; then the combine, the batched solve of the configured solver,
+    the stats.  Every item of the shard is recomputed in place."""
     ablates = ablate.split(",")
+    if mesh is not None:
+        other_items = mesh.all_gather(other_items)
     k = other_items.shape[-1]
     n = other_items.shape[0]
     items = a_val.shape[0]
@@ -262,7 +379,7 @@ def dense_half_sweep(
         u = full_rhs + noise + precision[:, 0, :]
     else:
         u = get_solver(solver)(precision, full_rhs, noise)
-    return _finish(state, u, local_valid, hp, num, it, burnin)
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
 @functools.cache
@@ -274,9 +391,9 @@ def _tight_pair_index(k: int, device: torch.device):
 
 def dense_half_sweep_fused(
     state: SideState,
-    a_ind_t: torch.Tensor,      # [other_pad, padded_num] indicator, TRANSPOSED
-    a_val: torch.Tensor,        # [padded_num, other_pad] centered values
-    other_items: torch.Tensor,  # [other_pad, K]
+    a_ind_t: torch.Tensor,      # [other_pad, local items] indicator, TRANSPOSED
+    a_val: torch.Tensor,        # [local items, other_pad] centered values
+    other_items: torch.Tensor,  # [other_pad, K] (this rank's shard with a mesh)
     hp: HyperParams,
     noise: torch.Tensor,        # [padded_num, K] N(0, I) by orig id
     it: int,
@@ -290,9 +407,11 @@ def dense_half_sweep_fused(
     prior_rhs_t: Optional[torch.Tensor] = None,  # [K, padded_num] static rhs
     grouped: bool = False,      # the packed-triangle solve's layout pin
     ablate: str = "",           # perf-debug (Config.ablate)
+    mesh: Optional[Mesh] = None,
 ) -> SideState:
     """Dense half-sweep with the packed-triangle solve (``bpmf_tpu.
-    parallel.spmd.dense_half_sweep_fused``).  The Gram is one matmul of
+    parallel.spmd.dense_half_sweep_fused``), after the all_gather of the
+    frozen side when there is a mesh.  The Gram is one matmul of
     the frozen side's packed outer products [T_tight, N] with the
     transposed indicator, a plain large product the JAX package also
     leaves to XLA; it comes out in the tight layout that the combine-solve
@@ -301,6 +420,8 @@ def dense_half_sweep_fused(
     layout for the TPU's sublanes; they change only layout and rounding,
     so, like ``BPMF_D8_FOLD``, they have no counterpart here."""
     ablates = ablate.split(",")
+    if mesh is not None:
+        other_items = mesh.all_gather(other_items)
     v_t = other_items.t()
     k, items = v_t.shape[0], a_val.shape[0]
     if "nomatmul" in ablates:
@@ -317,4 +438,19 @@ def dense_half_sweep_fused(
         u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(),
                                      alpha, lam_tri_t=prior_tri_t,
                                      grouped=grouped).t()
-    return _finish(state, u, local_valid, hp, num, it, burnin)
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
+
+
+def predict_sharded(mesh: Mesh, ev: EvalData, est: EvalState,
+                    user_items: torch.Tensor, movie_items: torch.Tensor,
+                    it: int, *, mean_rating, burnin: int, nnz_true: int
+                    ) -> tuple[EvalState, torch.Tensor, torch.Tensor]:
+    """The entry-sharded evaluation (``bpmf_tpu.parallel.spmd.
+    predict_sharded``): ``ev`` and ``est`` hold this rank's share of the
+    test entries and their Welford state (padded to a multiple of the rank
+    count, ``ev.valid`` hiding the padding); both factor tables are
+    all-gathered from their shards, and one all_reduce makes the error sums
+    global.  Each entry's Welford values are those of one device."""
+    return predict(ev, est, mesh.all_gather(user_items),
+                   mesh.all_gather(movie_items), it, mean_rating=mean_rating,
+                   burnin=burnin, mesh=mesh, nnz_true=nnz_true)

@@ -1,18 +1,26 @@
 """Host-side Gibbs sampling loop (port of ``bpmf_tpu/sampler.py``).
 
-One device.  Every iteration draws both hyperpriors, sweeps the movies then
-the users, and evaluates on the test set.  Each side's Gram route is
-decided once at setup, as the JAX package decides it on a TPU (the card
-takes the TPU's part): the dense code stream ("dense8": int8 codes, int16
-past 127 rating levels; with the megakernel
+One device, or one rank of a multi-device run (``mesh``: one process per
+rank over ``torch.distributed``, :mod:`bpmf_tpu_torch.parallel.mesh`), in
+which each rank holds its shard of both sides' items, of the Gram layouts
+and of the test entries.  Every iteration draws both hyperpriors, sweeps
+the movies then the users, and evaluates on the test set.  Each side's
+Gram route is decided once at setup, as the JAX package decides it on a
+TPU (the card takes the TPU's part): the dense code stream ("dense8": int8
+codes, int16 past 127 rating levels; with the megakernel
 or the split pipeline, :func:`~bpmf_tpu_torch.ops.dense8.d8_route`) for
 float32 ratings on an exact grid; else the dense adjacency while it fits
 ``dense_limit_bytes`` (fused with the packed-triangle solve where that is
 eligible), and the degree buckets beyond.  Iterations run as a Python loop
-with one host sync per chunk.
+with one host sync per chunk.  At D > 1 ranks a dense8 side takes the
+sharded sweep (the split pipeline, in gather and in reduce mode) and the
+other routes run in gather mode; the evaluation is entry-sharded.
 
-Features outside this slice raise ``NotImplementedError`` naming their
-``ROADMAP.md`` entry; none is ignored.
+Features outside the ported slices raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` entry; none is ignored: bf16 matmul inputs, and of
+multi-device the halo ring (``--halo on``), bucketed reduce (a side that
+takes the buckets in ``--mode reduce``) with its chunked form
+(``--reduce-chunked``), and ``--dist`` (the CLI).
 
 Beside the chain: the aggregated posterior and the six output files (``-o``)
 with the per-iteration dumps (``-v``), checkpoints and resume
@@ -61,11 +69,14 @@ from bpmf_tpu_torch.ops.mvnormal import (
 from bpmf_tpu_torch.ops.pallas_solve import pack_prior_tri, tri_fused_supported
 from bpmf_tpu_torch.ops.update import BucketDev, item_noise
 from bpmf_tpu_torch.parallel import partition as part
+from bpmf_tpu_torch.parallel.mesh import Mesh, resolve_n_devices
 from bpmf_tpu_torch.parallel.spmd import (
     dense8_half_sweep,
+    dense8_half_sweep_sharded,
     dense_half_sweep,
     dense_half_sweep_fused,
     gather_half_sweep,
+    predict_sharded,
 )
 from bpmf_tpu_torch.utils.counters import Counters, tick
 
@@ -73,11 +84,16 @@ __all__ = ["BPMF", "HostDraws", "Side", "TorchDraws", "unsupported"]
 
 SPLIT = "ROADMAP.md Queue 1 #3 (bf16 matmul inputs)"
 MULTI = "ROADMAP.md Queue 1 #6 (multi-device)"
+HALO = f"{MULTI[:-1]}, rest 1: the halo ring)"
+REDUCE = f"{MULTI[:-1]}, rest 2: bucketed reduce and its chunked form)"
+DIST = f"{MULTI[:-1]}, rest 3: --dist and multihost)"
 # the ablations that keep a side on its dense8 or fused dense route
 # (bpmf_tpu/sampler.py:296-297, :486-487: Config.ablate as a whole string);
 # any other value sends dense8 data to the dense or bucketed route
 FAST_ROUTE_ABLATIONS = ("", "nopredict", "nomatmul", "nosolve", "nohyper",
                         "nonoise")
+# those the sharded dense8 sweep takes at D > 1 (bpmf_tpu/sampler.py:296-300)
+SHARDED_D8_ABLATIONS = ("", "nopredict", "nohyper", "nonoise")
 PHASE_NAMES = {
     "nopredict": "predict/eval",
     "nosolve": "cholesky-solve-sample",
@@ -92,10 +108,10 @@ def unsupported(cfg: Config) -> list[str]:
     """Why ``cfg`` asks for something outside the ported slice, one line per
     feature, each naming its ROADMAP.md entry; empty when it is all in."""
     checks = [
-        (cfg.comm_mode == "reduce", "--mode reduce", MULTI),
-        (cfg.n_devices > 1, "--devices > 1", MULTI),
-        (cfg.halo == "on", "--halo on", MULTI),
-        (cfg.reduce_chunked != "auto", "--reduce-chunked", MULTI),
+        (cfg.halo == "on", "--halo on", HALO),
+        (cfg.comm_mode == "reduce" and cfg.gram_impl == "bucketed",
+         "--mode reduce with --gram-impl bucketed (bucketed reduce)", REDUCE),
+        (cfg.reduce_chunked != "auto", "--reduce-chunked", REDUCE),
         (cfg.resolve_matmul_dtype("cuda") != "float32",
          f"matmul_dtype {cfg.matmul_dtype}", SPLIT),
     ]
@@ -164,13 +180,14 @@ class Side:
     package's: to a multiple of 8, or of the dense8 block when some side
     takes dense8 (set by :meth:`BPMF.setup`)."""
 
-    def __init__(self, name: str, m_csc: sp.csc_matrix, cfg: Config):
+    def __init__(self, name: str, m_csc: sp.csc_matrix, cfg: Config,
+                 n_devices: int = 1):
         self.name = name
         self.m = m_csc  # [num_other, num]: items are columns
         self.num = m_csc.shape[1]
         self.degrees = np.diff(m_csc.indptr)
         self.max_degree = int(self.degrees.max(initial=0))
-        ids = part.assign_items(self.degrees, 1, balance=cfg.permute)
+        ids = part.assign_items(self.degrees, n_devices, balance=cfg.permute)
         self.maps = part.make_maps(ids, self.num)
         # set by BPMF.setup: the Gram route (dense8 | dense | bucketed), and
         # the solve route of a dense8 side (ops.dense8.d8_route: fused |
@@ -216,15 +233,18 @@ class Side:
 
 
 class _SideAux(NamedTuple):
-    local_orig: torch.Tensor   # [padded_num] original id, num for padding
-    local_valid: torch.Tensor  # [padded_num] 1 / 0
+    """A side's device data on this rank: every [local_pad, ...] array is
+    the rank's rows of the padded layout (all of it on one device)."""
+
+    local_orig: torch.Tensor   # [local_pad] original id, num for padding
+    local_valid: torch.Tensor  # [local_pad] 1 / 0
     # the per-item prior packed (dense8 and fused dense sides) ...
-    prior_tri_t: Optional[torch.Tensor] = None  # [T, padded_num]
-    prior_rhs_t: Optional[torch.Tensor] = None  # [K, padded_num] static rhs
+    prior_tri_t: Optional[torch.Tensor] = None  # [T, local_pad]
+    prior_rhs_t: Optional[torch.Tensor] = None  # [K, local_pad] static rhs
     # ... or whole (plain dense and bucketed sides)
-    prop_mu: Optional[torch.Tensor] = None      # [padded_num, K]
-    prop_lambda: Optional[torch.Tensor] = None  # [padded_num, K, K]
-    # dense sides: (indicator, centered values) [padded_num, other_pad],
+    prop_mu: Optional[torch.Tensor] = None      # [local_pad, K]
+    prop_lambda: Optional[torch.Tensor] = None  # [local_pad, K, K]
+    # dense sides: (indicator, centered values) [local_pad, other_pad],
     # the indicator transposed on a fused side
     dense: Optional[tuple] = None
     # bucketed sides: the buckets, their split flags, their slots' ids
@@ -235,7 +255,14 @@ class _SideAux(NamedTuple):
 
 class BPMF:
     """End-to-end sampler on one device (``cuda`` unless ``device`` says
-    otherwise)."""
+    otherwise), or one rank of ``mesh.size`` ranks.
+
+    ``mesh``: this rank's :class:`~bpmf_tpu_torch.parallel.mesh.Mesh`
+    (``parallel.launch.run_ranks``, or the CLI's ``--devices N``); its
+    device replaces ``device``.  Every rank builds the same maps and routes
+    from the whole data and keeps only its shard; only rank 0 prints and
+    writes files.  Without a mesh ``cfg.n_devices`` must resolve to one
+    device: more ranks need their processes."""
 
     def __init__(
         self,
@@ -246,13 +273,34 @@ class BPMF:
         *,
         device="cuda",
         draws=None,
+        mesh: Optional[Mesh] = None,
     ):
         problems = unsupported(cfg)
         if problems:
             raise NotImplementedError("; ".join(problems))
         self.cfg = cfg
         self.counters = Counters(cfg.profile)
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            n = resolve_n_devices(cfg.n_devices, self.device)
+            if n > 1:
+                raise ValueError(
+                    f"n_devices={n} needs one process per rank: start them "
+                    f"with python -m bpmf_tpu_torch --devices {n}, torchrun, "
+                    "or bpmf_tpu_torch.parallel.launch.run_ranks")
+        else:
+            if cfg.n_devices not in (0, mesh.size):
+                raise ValueError(f"n_devices={cfg.n_devices} on a mesh of "
+                                 f"{mesh.size} ranks")
+            self.device = resolve_device(mesh.device)
+        self._mesh_in = mesh
+        # the sweeps' collectives: none on one device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.n_devices = 1 if self.mesh is None else mesh.size
+        self.rank = 0 if self.mesh is None else mesh.rank
+        self.mode = "gather" if cfg.comm_mode == "auto" else cfg.comm_mode
+        if self.rank != 0:
+            out = open(os.devnull, "w")
         self.out = out if out is not None else sys.stdout
 
         if train is None:
@@ -271,8 +319,8 @@ class BPMF:
         self.mean_rating = train.sum() / train.nnz
 
         # movies: columns of R; users: rows of R (c++/bpmf.cpp:131-132)
-        self.movies = Side("movs", train, cfg)
-        self.users = Side("users", sp.csc_matrix(train.T), cfg)
+        self.movies = Side("movs", train, cfg, self.n_devices)
+        self.users = Side("users", sp.csc_matrix(train.T), cfg, self.n_devices)
         self.movies.add_prop_posterior(cfg.prop_v, cfg.num_latent)
         self.users.add_prop_posterior(cfg.prop_u, cfg.num_latent)
 
@@ -313,20 +361,31 @@ class BPMF:
         consult): ``self.grouped`` then names the layout of every per-item
         prior packed at setup and every packed-triangle solve of the run,
         so the two never disagree.  Its ``BPMF_D8_FOLD`` changes only
-        rounding and has no counterpart (``ops.dense8.dense8_gram_rhs_rows``)."""
+        rounding and has no counterpart (``ops.dense8.dense8_gram_rhs_rows``).
+
+        At D > 1 ranks (``bpmf_tpu/sampler.py:289-375``) the dense8 budget
+        is per device and dense8 takes only ``SHARDED_D8_ABLATIONS``; a
+        dense8 side runs the split pipeline (the sharded sweep), its route
+        decided on the local shapes; ``--mode reduce`` rides the dense8
+        program on dense8 sides and sends the others to the buckets, whose
+        reduce sweep is not ported and raises."""
         cfg = self.cfg
         k = cfg.num_latent
+        d = self.n_devices
         sides = (self.movies, self.users)
         q = None
         fast_ablation = cfg.ablate in FAST_ROUTE_ABLATIONS
         d8_ok = (cfg.gram_impl in ("auto", "dense8")
                  and cfg.dtype == "float32" and not cfg.diagonal_only
-                 and fast_ablation and tri_fused_supported(k))
+                 and cfg.ablate in (FAST_ROUTE_ABLATIONS if d == 1
+                                    else SHARDED_D8_ABLATIONS)
+                 and tri_fused_supported(k))
         if d8_ok:
             q = quantize_values(self.train.data)
             rp, cp = (-(-s.maps.padded_num // BLOCK_MULTIPLE) * BLOCK_MULTIPLE
                       for s in (self.users, self.movies))
-            d8_ok = q is not None and rp * cp <= cfg.dense8_limit_bytes
+            # the budget is per device: the user rows shard over the ranks
+            d8_ok = q is not None and rp * cp // d <= cfg.dense8_limit_bytes
         if cfg.gram_impl == "dense8" and not d8_ok:
             raise ValueError(
                 "gram_impl='dense8' needs float32, grid-quantizable ratings, "
@@ -338,29 +397,40 @@ class BPMF:
                          or self.solver in ("smart", "pallas")):
                 return "dense8"
             if cfg.gram_impl == "dense8":  # side excluded (prop posterior)
-                return "dense"
+                return "dense" if self.mode == "gather" else "bucketed"
             if cfg.gram_impl != "auto":
                 return cfg.gram_impl
+            if self.mode != "gather":
+                return "bucketed"
             a_bytes = side.maps.padded_num * other.maps.padded_num * 4
             return "bucketed" if a_bytes > cfg.dense_limit_bytes else "dense"
 
         self.movies.impl = impl(self.movies, self.users)
         self.users.impl = impl(self.users, self.movies)
+        for side in sides:
+            if self.mode == "reduce" and side.impl == "bucketed":
+                raise NotImplementedError(
+                    f"--mode reduce sends the {side.name} side to the degree "
+                    f"buckets (bucketed reduce): not ported yet, see {REDUCE}")
         if any(s.impl == "dense8" for s in sides):
             for side in sides:
                 side.maps = part.make_maps(side.maps.ids_per_dev, side.num,
                                            multiple=BLOCK_MULTIPLE)
             env = os.environ
             solve = env.get("BPMF_D8_SOLVE", "fused")
-            if cfg.ablate in ("nomatmul", "nosolve"):
-                solve = "split"  # spmd.py:846-853: these keep the split pipeline
+            if cfg.ablate in ("nomatmul", "nosolve") or d > 1:
+                # spmd.py:846-853: these keep the split pipeline; the sharded
+                # sweep runs only the split pipeline (spmd.py:998-1103)
+                solve = "split"
             pt = env.get("BPMF_D8_PT", "auto")
-            rp, cp = self.users.maps.padded_num, self.movies.maps.padded_num
-            for side, orientation, frozen in ((self.movies, "cols", rp),
-                                              (self.users, "rows", cp)):
+            # the shapes each rank's kernels see: (R/D, C) on the users'
+            # sweep, (C, R/D) on the movies' (spmd.py:1036-1037, :1056-1057)
+            lp_u, cp = self.users.maps.local_pad, self.movies.maps.padded_num
+            for side, orientation, items, frozen in (
+                    (self.movies, "cols", cp, lp_u),
+                    (self.users, "rows", lp_u, cp)):
                 if side.impl == "dense8":
-                    side.route = d8_route(k, side.maps.padded_num, frozen,
-                                          orientation,
+                    side.route = d8_route(k, items, frozen, orientation,
                                           peritem=side.prop_mu is not None,
                                           solve=solve, pt=pt)
         for side in sides:
@@ -401,28 +471,34 @@ class BPMF:
 
         self._codes = None
         if "dense8" in (self.movies.impl, self.users.impl):
+            # this rank's user rows of the code array, [R/D, C] (all of it
+            # on one device): the COO is filtered by row range first, so no
+            # rank holds the whole array
             coo = self.train.tocoo()
+            rows = self.users.maps.orig_to_padded[coo.row]
+            lp = self.users.maps.local_pad
+            keep = (rows >= self.rank * lp) & (rows < (self.rank + 1) * lp)
             codes_np = build_code_array(
-                self.users.maps.orig_to_padded[coo.row],
-                self.movies.maps.orig_to_padded[coo.col],
-                coo.data, q,
-                self.users.maps.padded_num, self.movies.maps.padded_num,
+                rows[keep] - self.rank * lp,
+                self.movies.maps.orig_to_padded[coo.col[keep]],
+                coo.data[keep], q, lp, self.movies.maps.padded_num,
             )
             self._codes = torch.from_numpy(codes_np).to(dev)
             del codes_np
             self._d8_cs = float(q.scale * cfg.alpha)
             self._d8_cb = float((q.offset - self.mean_rating) * cfg.alpha)
+            # the most ratings an item has within this rank's codes: it
+            # bounds the frozen axis's segments (ops.dense8.sweep_plan)
+            self._d8_max_degree = {
+                "users": int(self.users.degrees[
+                    self.users.maps.ids_per_dev[self.rank]].max(initial=0)),
+                "movs": int(np.bincount(coo.col[keep], minlength=1).max()),
+            }
 
         self._aux = {side.name: self._side_aux(side, other)
                      for side, other in ((self.movies, self.users),
                                          (self.users, self.movies))}
-        self.ev = EvalData(
-            t_user=torch.as_tensor(self.users.maps.orig_to_padded[self.t_user],
-                                   dtype=torch.long, device=dev),
-            t_item=torch.as_tensor(self.movies.maps.orig_to_padded[self.t_item],
-                                   dtype=torch.long, device=dev),
-            t_val=torch.as_tensor(self.t_val, dtype=dtype, device=dev),
-        )
+        self.ev = self._eval_data()
         self._mean_rating = torch.as_tensor(self.mean_rating, dtype=dtype,
                                             device=dev)
         # item counts on the device: a per-iteration host-to-device copy
@@ -435,7 +511,7 @@ class BPMF:
         aggregate = bool(cfg.output_dir)
 
         def init_state(side: Side) -> SideState:
-            k, pn = cfg.num_latent, side.maps.padded_num
+            k, pn = cfg.num_latent, side.maps.local_pad
             return SideState(
                 items=torch.zeros((pn, k), dtype=dtype, device=dev),
                 hp=HyperParams.init(k, dtype, dev),
@@ -450,7 +526,7 @@ class BPMF:
 
         self.state_m = init_state(self.movies)
         self.state_u = init_state(self.users)
-        nnz_t = len(self.t_val)
+        nnz_t = self.ev.t_val.shape[0]
         self.est = EvalState(
             pavg=torch.zeros(nnz_t, dtype=dtype, device=dev),
             pm2=torch.zeros(nnz_t, dtype=dtype, device=dev),
@@ -458,30 +534,60 @@ class BPMF:
         self._setup_done = True
         self._log_banner()
 
+    def _eval_data(self) -> EvalData:
+        """The test entries in padded index order on the device.  At D > 1
+        ranks they are padded to a multiple of D, ``valid`` hiding the
+        padding, and each rank keeps its 1/D of them by position
+        (``bpmf_tpu/sampler.py:600-618``)."""
+        dev, d = self.device, self.n_devices
+        arrays = [self.users.maps.orig_to_padded[self.t_user],
+                  self.movies.maps.orig_to_padded[self.t_item],
+                  np.asarray(self.t_val, np.float64)]
+        valid = None
+        if d > 1:
+            nnz = len(self.t_val)
+            per = -(-nnz // d)
+            mine = slice(self.rank * per, (self.rank + 1) * per)
+            arrays = [np.pad(a, (0, per * d - nnz))[mine] for a in arrays]
+            valid = torch.as_tensor((np.arange(per * d) < nnz)[mine],
+                                    dtype=self.dtype, device=dev)
+        tu, ti, tv = arrays
+        return EvalData(
+            t_user=torch.as_tensor(tu, dtype=torch.long, device=dev),
+            t_item=torch.as_tensor(ti, dtype=torch.long, device=dev),
+            t_val=torch.as_tensor(tv, dtype=self.dtype, device=dev),
+            valid=valid)
+
+    def _mine(self, side: Side) -> slice:
+        """This rank's rows of a side's padded layout."""
+        lp = side.maps.local_pad
+        return slice(self.rank * lp, (self.rank + 1) * lp)
+
     def _side_aux(self, side: Side, other: Side) -> _SideAux:
-        """A side's device data (``bpmf_tpu/sampler.py:510-599``): its maps,
-        its propagated posterior (packed on dense8 and fused sides, whole
-        elsewhere), and its Gram layout: the dense blocks, precomputed once
-        in the compute dtype from float32 values as the JAX package does
-        (the indicator transposed on a fused side), or the degree buckets
-        (``Side._buckets_dev``)."""
+        """A side's device data (``bpmf_tpu/sampler.py:510-599``), this
+        rank's rows of each: its maps, its propagated posterior (packed on
+        dense8 and fused sides, whole elsewhere), and its Gram layout: the
+        dense block, precomputed once in the compute dtype from float32
+        values as the JAX package does (the indicator transposed on a fused
+        side), or the degree buckets (``Side._buckets_dev``)."""
         cfg, dev, dtype = self.cfg, self.device, self.dtype
         aux = dict(
-            local_orig=torch.as_tensor(side.maps.local_orig[0], dtype=torch.long,
-                                       device=dev),
-            local_valid=torch.as_tensor(side.maps.local_valid[0], dtype=dtype,
-                                        device=dev))
+            local_orig=torch.as_tensor(side.maps.local_orig[self.rank],
+                                       dtype=torch.long, device=dev),
+            local_valid=torch.as_tensor(side.maps.local_valid[self.rank],
+                                        dtype=dtype, device=dev))
         if side.prop_mu is not None:
             if side.impl == "dense8" or side.route == "fused":
                 aux.update(self._prior(side))
             else:
-                pm, pl = side.prop_padded_np(cfg.num_latent)
+                pm, pl = (a[self._mine(side)]
+                          for a in side.prop_padded_np(cfg.num_latent))
                 aux.update(prop_mu=torch.as_tensor(pm, dtype=dtype, device=dev),
                            prop_lambda=torch.as_tensor(pl, dtype=dtype, device=dev))
         if side.impl == "dense":
-            block = part.build_dense_layout(side.m, side.maps,
-                                            other.maps.orig_to_padded,
-                                            other.maps.padded_num)[0]
+            block = part.build_dense_block(side.m, side.maps,
+                                           other.maps.orig_to_padded,
+                                           other.maps.padded_num, self.rank)
             ind = block != 0
             val = ((block - np.float32(self.mean_rating)) * ind
                    * np.float32(cfg.alpha)).astype(np.float32)
@@ -496,9 +602,10 @@ class BPMF:
                 cfg.max_bucket_width, cfg.bucket_growth)
             arrays = [f.name for f in dataclasses.fields(layout.buckets[0])
                       if f.name != "split"]
-            buckets = tuple(  # stacked [1, ...] over the one device
+            buckets = tuple(  # stacked [D, ...]: this rank's row
                 BucketDev.from_bucket(
-                    dataclasses.replace(b, **{n: getattr(b, n)[0] for n in arrays}),
+                    dataclasses.replace(b, **{n: getattr(b, n)[self.rank]
+                                              for n in arrays}),
                     dtype, dev)
                 for b in layout.buckets)
             aux.update(buckets=buckets, splits=layout.splits,
@@ -514,7 +621,7 @@ class BPMF:
         transposed views of item-major tensors, the layout the solve kernel
         reads."""
         k = self.cfg.num_latent
-        pm, pl = side.prop_padded_np(k)
+        pm, pl = (a[self._mine(side)] for a in side.prop_padded_np(k))
 
         def dev(batch_last):
             return torch.as_tensor(np.ascontiguousarray(batch_last.T),
@@ -546,7 +653,8 @@ class BPMF:
         self._log(f"num movs: {self.movies.num}")
         self._log(f"num users: {self.users.num}")
         self._log(f"num_latent: {cfg.num_latent}")
-        self._log("ndevices: 1 (mode: gather)")
+        d = self.n_devices
+        self._log(f"ndevices: {d} (mode: {self.mode})")
         self._log(f"nsims: {cfg.nsims}")
         self._log(f"burnin: {cfg.burnin}")
         self._log(f"alpha: {cfg.alpha}")
@@ -555,6 +663,15 @@ class BPMF:
                 if self.device.type == "cuda" else "cpu")
         self._log(f"device: {self.device} ({name}), dtype {cfg.dtype}")
         self._log(f"solver: {self.solver}")
+        if d > 1:
+            # assignment unbalance (Sys::assign prints the same idea,
+            # c++/assign.cpp:140-173)
+            for side in (self.movies, self.users):
+                work = np.array([(10 + side.degrees[ids]).sum()
+                                 for ids in side.maps.ids_per_dev])
+                self._log(f"assign {side.name}: work/device min {work.min()} "
+                          f"max {work.max()} unbalance "
+                          f"{work.max() / max(work.mean(), 1):.3f}")
         for side in (self.movies, self.users):
             aux = self._aux[side.name]
             prior = ", per-item prior" if side.prop_mu is not None else ""
@@ -564,23 +681,35 @@ class BPMF:
                 prior += ", grouped layout"
             if side.impl == "dense8":
                 r, c = self._codes.shape
-                nbytes = r * c * self._codes.element_size()
+                nbytes = d * r * c * self._codes.element_size()
                 code = str(self._codes.dtype).removeprefix("torch.")
+                shard = f", {r}x{c} a rank (user rows)" if d > 1 else ""
                 self._log(f"gram layout {side.name}: {code} dense-stream "
-                          f"{r}x{c} shared code array ({nbytes / 1e6:.0f} MB), "
-                          f"route {side.route}{prior}")
+                          f"{d * r}x{c} shared code array ({nbytes / 1e6:.0f} MB"
+                          f"{shard}), route {side.route}{prior}")
+                if self.mode == "reduce":
+                    # spmd.py:1041-1077: the users' stats exchange on the
+                    # movies' sweep is the reduce-scatter already
+                    self._log(f"gram layout {side.name}: reduce mode via "
+                              "dense-stream hybrid (stat exchange on the "
+                              "sharded sweep, small-side value exchange)")
             elif side.impl == "dense":
                 lp, opn = aux.dense[1].shape
                 nbytes = aux.dense[1].element_size()
                 self._log(f"gram layout {side.name}: dense adjacency "
-                          f"1x{lp}x{opn} x2 blocks "
-                          f"({2 * lp * opn * nbytes / 1e6:.0f} MB {cfg.dtype}), "
+                          f"{d}x{lp}x{opn} x2 blocks "
+                          f"({2 * d * lp * opn * nbytes / 1e6:.0f} MB {cfg.dtype}), "
                           f"route {side.route}{prior}")
             else:
                 self._log(f"gram layout {side.name}: buckets "
-                          + ", ".join(f"1x{b.nbr.shape[0]}x{b.nbr.shape[1]}"
+                          + ", ".join(f"{d}x{b.nbr.shape[0]}x{b.nbr.shape[1]}"
                                       for b in aux.buckets)
                           + f"  (devices x rows x width){prior}")
+                if d > 1 and cfg.halo == "auto":
+                    # bpmf_tpu/sampler.py:433-438 can take the halo ring here;
+                    # it moves the values of the all_gather
+                    self._log(f"halo {side.name}: all_gather (the halo ring is "
+                              f"not ported yet, see {HALO})")
 
     # -- Gibbs loop --------------------------------------------------------
 
@@ -592,9 +721,10 @@ class BPMF:
             self.draws = TorchDraws(seed, self.device)
 
     def _sweep(self, side: Side, state: SideState, other_items, hp, it):
-        """One half-sweep on the side's route.  Noise rows are keyed by
-        original id: the padded slots of a dense8 or dense side, the
-        concatenated bucket slots of a bucketed side; zeros under
+        """One half-sweep on the side's route (over the ranks of the mesh at
+        D > 1: the sharded dense8 sweep, or gather mode).  Noise rows are
+        keyed by original id: the rank's padded slots of a dense8 or dense
+        side, its concatenated bucket slots of a bucketed side; zeros under
         ``ablate="nonoise"``."""
         cfg = self.cfg
         aux = self._aux[side.name]
@@ -614,27 +744,48 @@ class BPMF:
                 diagonal_only=cfg.diagonal_only,
                 strict_reference=cfg.strict_reference, solver=self.solver,
                 prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda,
-                ablate=cfg.ablate)
+                ablate=cfg.ablate, mesh=self.mesh)
+        orientation = "rows" if side is self.users else "cols"
+        if side.impl == "dense8" and self.mesh is not None:
+            return dense8_half_sweep_sharded(
+                self.mesh, state, self._codes, other_items, hp, noise, it,
+                num=side.num, local_valid=aux.local_valid, alpha=cfg.alpha,
+                burnin=cfg.burnin, cs=self._d8_cs, cb=self._d8_cb,
+                orientation=orientation, route=side.route,
+                prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
+                grouped=self.grouped, max_degree=self._d8_max_degree[side.name])
         common = dict(num=side.num, local_valid=aux.local_valid,
                       alpha=cfg.alpha, burnin=cfg.burnin, ablate=cfg.ablate)
         if side.impl == "dense8":
             return dense8_half_sweep(
                 state, self._codes, other_items, hp, noise, it,
                 cs=self._d8_cs, cb=self._d8_cb,
-                orientation="rows" if side is self.users else "cols",
-                route=side.route, prior_tri_t=aux.prior_tri_t,
-                prior_rhs_t=aux.prior_rhs_t, grouped=self.grouped,
-                max_degree=side.max_degree, **common)
+                orientation=orientation, route=side.route,
+                prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
+                grouped=self.grouped, max_degree=self._d8_max_degree[side.name],
+                **common)
         if side.route == "fused":
             return dense_half_sweep_fused(
                 state, *aux.dense, other_items, hp, noise, it,
                 prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
-                grouped=self.grouped, **common)
+                grouped=self.grouped, mesh=self.mesh, **common)
         return dense_half_sweep(
             state, *aux.dense, other_items, hp, noise, it,
             diagonal_only=cfg.diagonal_only,
             strict_reference=cfg.strict_reference, solver=self.solver,
-            prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda, **common)
+            prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda, mesh=self.mesh,
+            **common)
+
+    def _predict(self, it: int):
+        """The evaluation of iteration ``it`` on the current tables:
+        entry-sharded at D > 1 (``bpmf_tpu/sampler.py:649-660``)."""
+        kw = dict(mean_rating=self._mean_rating, burnin=self.cfg.burnin)
+        if self.mesh is not None:
+            return predict_sharded(self.mesh, self.ev, self.est,
+                                   self.state_u.items, self.state_m.items, it,
+                                   nnz_true=len(self.t_val), **kw)
+        return predict(self.ev, self.est, self.state_u.items,
+                       self.state_m.items, it, **kw)
 
     def _iter(self, it: int, skip_predict: bool = False) -> Metrics:
         """One full Gibbs iteration (c++/bpmf.cpp:184-196): both hyperprior
@@ -660,9 +811,7 @@ class BPMF:
         if skip_predict or "nopredict" in self._ablates:
             rmse = rmse_avg = torch.zeros((), dtype=self.dtype, device=self.device)
         else:
-            self.est, rmse, rmse_avg = predict(
-                self.ev, self.est, su.items, sm.items, it,
-                mean_rating=self._mean_rating, burnin=cfg.burnin)
+            self.est, rmse, rmse_avg = self._predict(it)
         return Metrics(rmse=rmse, rmse_avg=rmse_avg,
                        norm_users=torch.sqrt(su.norm),
                        norm_movies=torch.sqrt(sm.norm))
@@ -673,9 +822,11 @@ class BPMF:
         ``defer_predict="on"`` and predict runs; else as many as the
         per-group footprint (2 gathers of nnz_t rows and both tables per
         iteration) lets ``defer_predict_limit_bytes`` hold, at most 32.
-        ``auto`` stays off, as in the JAX package."""
+        ``auto`` stays off, as in the JAX package, and so does every run of
+        more than one device (``bpmf_tpu/sampler.py:879``)."""
         cfg = self.cfg
-        if cfg.defer_predict != "on" or "nopredict" in self._ablates:
+        if (cfg.defer_predict != "on" or "nopredict" in self._ablates
+                or self.n_devices > 1):
             return 1
         per_iter_bytes = 4 * cfg.num_latent * (
             2 * len(self.t_val) + self.users.maps.padded_num
@@ -719,10 +870,30 @@ class BPMF:
         """One full Gibbs iteration; returns its metrics as numpy scalars."""
         return Metrics(*(x[0] for x in self.run_chunk(1)))
 
+    def gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a row-sharded tensor, in padded order (the
+        JAX package's ``to_host`` gather; collective at D > 1: every rank
+        calls it); ``x`` itself on one device."""
+        return x if self.mesh is None else self.mesh.all_gather(x)
+
     def items_host(self, side: Side, state: SideState) -> np.ndarray:
-        """Items in original order, [num, K] float64."""
-        arr = state.items.detach().to("cpu", torch.float64).numpy()
+        """Items in original order, [num, K] float64 (collective at D > 1)."""
+        arr = self.gathered(state.items).detach().to("cpu", torch.float64).numpy()
         return arr[side.maps.orig_to_padded]
+
+    def state_host(self) -> tuple[SideState, SideState, EvalState]:
+        """(movies, users, eval) state with every rank's rows, in padded
+        order, the eval state cut to the real test entries (collective at
+        D > 1)."""
+        def side(state: SideState) -> SideState:
+            return state._replace(
+                items=self.gathered(state.items),
+                aggr_mu=None if state.aggr_mu is None else self.gathered(state.aggr_mu),
+                aggr_prod=(None if state.aggr_prod is None
+                           else self.gathered(state.aggr_prod)))
+        nnz = len(self.t_val)
+        est = EvalState(*(self.gathered(x)[:nnz] for x in self.est))
+        return side(self.state_m), side(self.state_u), est
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -780,9 +951,10 @@ class BPMF:
                 # per-iteration model dump (-v, c++/bpmf.cpp:200-209)
                 for prefix, side, state in (("U", self.users, self.state_u),
                                             ("V", self.movies, self.state_m)):
-                    write_matrix(os.path.join(cfg.output_dir,
-                                              f"{prefix}-{done}.ddm"),
-                                 self.items_host(side, state).T)
+                    items = self.items_host(side, state)
+                    if self.rank == 0:
+                        write_matrix(os.path.join(cfg.output_dir,
+                                                  f"{prefix}-{done}.ddm"), items.T)
             done += n
             # boundary-crossing trigger: `done` advances in steps of `chunk`,
             # so a modulo test would never fire when the frequency is not a
@@ -796,9 +968,7 @@ class BPMF:
 
         # final prediction pass (c++/bpmf.cpp:225,242): one more Welford
         # update with the last sample
-        self.est, rmse, rmse_avg = predict(
-            self.ev, self.est, self.state_u.items, self.state_m.items,
-            self.iter, mean_rating=self._mean_rating, burnin=cfg.burnin)
+        self.est, rmse, rmse_avg = self._predict(self.iter)
         self.rmse = float(rmse)
         self.rmse_avg = float(rmse_avg)
 
@@ -855,7 +1025,7 @@ class BPMF:
                 cfg2 = dataclasses.replace(self.cfg, ablate=v, profile=False,
                                            checkpoint_path="", resume="")
                 s = BPMF(cfg2, train=self.train, test=self.test, out=devnull,
-                         device=self.device)
+                         device=self.device, mesh=self._mesh_in)
                 s.setup()
                 t = timed(s)
                 del s
@@ -870,17 +1040,21 @@ class BPMF:
     def write_output(self) -> None:
         """Write the Pavg/Pm2 predictions and the aggregated posterior
         (c++/bpmf.cpp:221-240; ``bpmf_tpu/sampler.py:1319-1347``): Pavg.sdm,
-        Pm2.sdm, U-mu.ddm, U-Lambda.ddm, V-mu.ddm, V-Lambda.ddm."""
+        Pm2.sdm, U-mu.ddm, U-Lambda.ddm, V-mu.ddm, V-Lambda.ddm.  At D > 1
+        every rank takes part in the gathers and rank 0 writes."""
         odir = self.cfg.output_dir
+        state_m, state_u, est = self.state_host()
+        if self.rank != 0:
+            return
         os.makedirs(odir, exist_ok=True)
         shape = self.test.shape
-        for name, values in (("Pavg", self.est.pavg), ("Pm2", self.est.pm2)):
+        for name, values in (("Pavg", est.pavg), ("Pm2", est.pm2)):
             host = values.detach().to("cpu", torch.float64).numpy()
             write_matrix(os.path.join(odir, f"{name}.sdm"),
                          sp.csc_matrix((host, (self.t_user, self.t_item)),
                                        shape=shape))
-        for prefix, side, state in (("U", self.users, self.state_u),
-                                    ("V", self.movies, self.state_m)):
+        for prefix, side, state in (("U", self.users, state_u),
+                                    ("V", self.movies, state_m)):
             mu, lam = self._finalize_mu_lambda(side, state)
             write_matrix(os.path.join(odir, f"{prefix}-mu.ddm"), mu)
             write_matrix(os.path.join(odir, f"{prefix}-Lambda.ddm"), lam)
@@ -888,8 +1062,9 @@ class BPMF:
     def _finalize_mu_lambda(self, side: Side, state: SideState):
         """Aggregate sums -> posterior mean (K x num) and per-item precision
         (K^2 x num, column i = vec(prec_i) column-major) (Sys::
-        finalize_mu_lambda, c++/bpmf.cpp:281-295).  The aggregates move to
-        float64 on the host before the inverse, as in the JAX package."""
+        finalize_mu_lambda, c++/bpmf.cpp:281-295).  The aggregates (every
+        rank's rows, :meth:`state_host`) move to float64 on the host before
+        the inverse, as in the JAX package."""
         cfg = self.cfg
         nsamples = cfg.nsims - cfg.burnin
         idx = side.maps.orig_to_padded

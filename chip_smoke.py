@@ -154,6 +154,24 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               BPMF_D8_SOLVE=fused_aligned (#2 at a runtime K on the
               capacities 24, 16 and 40), 2 chunks of 50, finite; every
               chain's launches counted by kernel and by instance
+  24. multi    multi-device on the one card (bpmf_tpu_torch.parallel): (a)
+              a real NCCL group of one rank (a TCP store on a free local
+              port): on ml-1m synth K=32, the sharded dense8 half-sweep in
+              both orientations (the split pipeline, #3 + #5, as the JAX
+              package runs it at D > 1), the entry-sharded evaluation and
+              gather mode's plain dense (#8), fused dense (#5) and bucketed
+              (#8) sweeps, each held to its one-device function on the same
+              inputs within MULTI_TOL, the sharded calls' launches and
+              collectives counted between a reset and a read; (b) two ranks
+              on the one GPU through gloo on CUDA tensors (NCCL refuses two
+              ranks on one GPU): first each collective once (a refusal is
+              quoted and ends (b)), then the ml-1m K=32 chain through BPMF at
+              n_devices=2, 2 chunks of 50, each rank holding half the user
+              rows of the code array: finite, the split kernels launched on
+              every rank, rmse_avg within MULTI_BAND of the one-device chain
+              of the same seed and both factor tables within MULTI_TABLES
+              of one device's; its ms/iter, beside one device's, is
+              gloo through the host, not a speed of the port
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -212,6 +230,13 @@ RMSE_AVG_ML25M_HALF = 1.0902     # BENCH_r05.json, the ml-25M half-scale leg
 OFFGRID_BAND = 0.005             # two routes of one chain, other rounding
 GRID_BAND = 0.005                # the same, for phase 22's chains
 WIDE_BAND = 0.005                # the same, for phase 23's K=40 chains
+MULTI_TOL = 1e-6                 # phase 24 (a): the same kernels on the same
+                                 # inputs; relative to the largest magnitude
+MULTI_BAND = 0.005               # phase 24 (b): 2 ranks against 1, other
+                                 # routes (split against #1) and sum orders
+MULTI_TABLES = 1e-3              # phase 24 (b): the factor tables' largest
+                                 # difference from one device's (3.7e-5 read
+                                 # on an H100, PERF.md section 6)
 # Phase 3's rows of the megakernel past one row a lane (#1 at K 33-41, on
 # the capacities 40 and 44) and of #2 at a runtime K: (operand, K)
 WIDE = (("inkernel", 33), ("inkernel", 40), ("inkernel", 41), ("tight", 24),
@@ -613,6 +638,247 @@ def write_prop(path, k, num, seed):
     write_matrix(mu_f, 0.1 * rng.normal(size=(k, num)))
     write_matrix(lam_f, lam.transpose(1, 2, 0).reshape(k * k, num, order="F"))
     return f"{mu_f},{lam_f}"
+
+
+def multi_rank_chain(mesh, chunks, iters, seed, k, data_kw):
+    """Phase 24 (b): one rank of a chain on ml-1m synth (``data_kw``; every
+    rank makes the same data from its seed) through ``BPMF`` on ``mesh``.
+    First each of the three collectives once on this rank's device: if the
+    backend refuses one, the rank returns the refusals and runs no chain.
+    Else the chain's launch counts (set to 0 after setup, read after the
+    chunks), its collectives, per-chunk seconds and last metrics."""
+    import numpy as np
+    import torch
+
+    from bpmf_tpu_torch import Config, synth_movielens
+    from bpmf_tpu_torch.sampler import BPMF
+
+    refused = {}
+    x = torch.ones((2, 3), device=mesh.device)
+    for name, call in (("all_gather", lambda: mesh.all_gather(x)),
+                       ("all_reduce", lambda: mesh.all_reduce(x)),
+                       ("reduce_scatter", lambda: mesh.reduce_scatter(
+                           x.repeat(mesh.size, 1)))):
+        try:
+            call()
+        except RuntimeError as e:      # the backend's refusal, quoted
+            refused[name] = f"{type(e).__name__}: {e}"[:1000]
+    if refused:
+        return {"rank": mesh.rank, "refused": refused}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train, test = synth_movielens(**data_kw)
+    counts = Counts()
+    sampler = BPMF(Config(num_latent=k, burnin=2, nsims=chunks * iters, seed=seed),
+                   train, test, out=open(os.devnull, "w"), mesh=mesh)
+    sampler.setup()
+    counts.reset()
+    before = dict(mesh.collectives)
+    mets, chunk_s = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        mets.append(sampler.run_chunk(iters))   # ends in a host sync
+        chunk_s.append(time.perf_counter() - t0)
+    n = counts.read()
+    collectives = {c: m - before[c] for c, m in mesh.collectives.items()}
+    tables = [sampler.items_host(sampler.users, sampler.state_u),
+              sampler.items_host(sampler.movies, sampler.state_m)]
+    return {"rank": mesh.rank, "launches": n, "tables": tables,
+            "collectives": collectives,
+            "routes": {s.name: s.route for s in (sampler.movies, sampler.users)},
+            "codes": list(sampler._codes.shape),
+            "layout": [sampler.users.maps.local_pad, sampler.users.maps.padded_num,
+                       sampler.movies.maps.padded_num], "chunk_s": chunk_s,
+            "rmse_avg": float(mets[-1].rmse_avg[-1]),
+            "rmse": float(mets[-1].rmse[-1]), "finite": bool(all(
+                np.isfinite(x).all() for m in mets for x in m))}
+
+
+def multi_phase(train, test, counts, total, tag, devnull, device="cuda",
+                k=K, data_kw=None, chunks=2, iters=50):
+    """Phase 24: multi-device on the one card.  (a) a real NCCL group of one
+    rank: the sharded dense8 half-sweep in both orientations, the
+    entry-sharded evaluation and gather mode's plain dense, fused dense and
+    bucketed sweeps, each held to its one-device function on the same
+    inputs (MULTI_TOL); (b) two ranks on the one GPU through gloo on CUDA
+    tensors: the ml-1m chain through BPMF (``chunks`` of ``iters``), against
+    one device (MULTI_BAND, MULTI_TABLES).  ``device``, ``k`` and
+    ``data_kw`` (the synth_movielens arguments of ``train, test``) exist for
+    a rehearsal on the CPU at a small size.  Returns the phase's lines and its seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bpmf_tpu_torch import Config
+    from bpmf_tpu_torch.models.bpmf import predict
+    from bpmf_tpu_torch.parallel import spmd
+    from bpmf_tpu_torch.parallel.launch import run_ranks
+    from bpmf_tpu_torch.parallel.mesh import free_port, init_mesh
+    from bpmf_tpu_torch.sampler import BPMF
+
+    t_phase = time.perf_counter()
+    lines = []
+    # (a) one NCCL rank
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = init_mesh(0, 1, f"tcp://127.0.0.1:{free_port()}", dev)
+    assert mesh.group is not None and mesh.backend == (
+        "nccl" if dev.type == "cuda" else "gloo")
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    def side_err(got, want):
+        return max(rel(getattr(got, f), getattr(want, f))
+                   for f in ("items", "sum", "cov", "norm"))
+
+    with env(BPMF_D8_SOLVE="split"):
+        s8 = BPMF(Config(num_latent=k, burnin=2, nsims=10), train, test,
+                  out=devnull, device=dev)
+        s8.setup()
+    s8.run_chunk(3)                        # a state of the chain itself
+    samplers = {}
+    for name, kw in (("dense", dict(gram_impl="dense", fuse_dense="off")),
+                     ("fused", dict(gram_impl="dense")),
+                     ("bucketed", dict(gram_impl="bucketed"))):
+        samplers[name] = BPMF(Config(num_latent=k, burnin=0, nsims=1, **kw),
+                              train, test, out=devnull, device=dev)
+        samplers[name].setup()
+        assert (samplers[name].movies.impl, samplers[name].movies.route) == {
+            "dense": ("dense", "plain"), "fused": ("dense", "fused"),
+            "bucketed": ("bucketed", None)}[name]
+    calls = []                              # (name, sharded call, one-device call)
+    for orientation, side, state, other in (
+            ("rows", s8.users, s8.state_u, s8.state_m),
+            ("cols", s8.movies, s8.state_m, s8.state_u)):
+        aux = s8._aux[side.name]
+        noise = torch.randn((state.items.shape[0], k), generator=g, device=dev)
+        kw = dict(num=side.num, local_valid=aux.local_valid, alpha=2.0, burnin=2,
+                  cs=s8._d8_cs, cb=s8._d8_cb, orientation=orientation,
+                  route=side.route, max_degree=s8._d8_max_degree[side.name])
+        args = (state, s8._codes, other.items, state.hp, noise, 5)
+        calls.append((f"dense8_{orientation}",
+                      lambda args=args, kw=kw: spmd.dense8_half_sweep_sharded(
+                          mesh, *args, **kw),
+                      lambda args=args, kw=kw: spmd.dense8_half_sweep(*args, **kw)))
+    for name, s in samplers.items():
+        side, other = s.movies, s.users
+        aux = s._aux[side.name]
+        state = s.state_m._replace(items=torch.randn(s.state_m.items.shape,
+                                                     generator=g, device=dev))
+        other_items = 0.5 * torch.randn(s.state_u.items.shape, generator=g,
+                                        device=dev)
+        hp = s8.state_m.hp
+        # noise rows by original id, as the chain draws them: the padding
+        # slots share the row of id num, so their draws, which all land in
+        # the scratch row, are equal
+        ids = aux.bucket_orig if name == "bucketed" else aux.local_orig
+        noise = torch.randn((side.num + 1, k), generator=g, device=dev)[ids]
+        if name == "bucketed":
+            fn = spmd.gather_half_sweep
+            kw = dict(num=side.num, mean_rating=s._mean_rating, alpha=2.0,
+                      burnin=0, splits=aux.splits, solver=s.solver)
+            args = (state, aux.buckets, other_items, hp, noise, 5)
+        else:
+            fn = spmd.dense_half_sweep_fused if name == "fused" else spmd.dense_half_sweep
+            kw = dict(num=side.num, local_valid=aux.local_valid, alpha=2.0, burnin=0)
+            if name == "dense":
+                kw["solver"] = s.solver
+            args = (state, *aux.dense, other_items, hp, noise, 5)
+        calls.append((name, lambda fn=fn, args=args, kw=kw: fn(*args, mesh=mesh, **kw),
+                      lambda fn=fn, args=args, kw=kw: fn(*args, **kw)))
+    ev1 = s8.ev._replace(valid=torch.ones_like(s8.ev.t_val))
+    pkw = dict(mean_rating=s8._mean_rating, burnin=2)
+    calls.append(("predict",
+                  lambda: spmd.predict_sharded(
+                      mesh, ev1, s8.est, s8.state_u.items, s8.state_m.items, 3,
+                      nnz_true=len(s8.t_val), **pkw),
+                  lambda: predict(s8.ev, s8.est, s8.state_u.items,
+                                  s8.state_m.items, 3, **pkw)))
+    # the sharded path alone between a reset and a read of the counts
+    counts.reset()
+    before = dict(mesh.collectives)
+    got = {name: sharded() for name, sharded, _ in calls}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    n = counts.read()
+    collectives = {c: m - before[c] for c, m in mesh.collectives.items()}
+    want_n = (launches(gram_inkernel=2, solve_shared=3, blast=2)
+              if dev.type == "cuda" else launches())
+    assert n == want_n, n
+    assert collectives == {"all_gather": 6, "all_reduce": 6, "reduce_scatter": 1}, collectives
+    for key, c in n.items():
+        total[key] += c
+    errs = {}
+    for name, _, one_device in calls:
+        want = one_device()
+        if name == "predict":
+            errs[name] = max(rel(got[name][1], want[1]), rel(got[name][2], want[2]),
+                             rel(got[name][0].pavg, want[0].pavg),
+                             rel(got[name][0].pm2, want[0].pm2))
+        else:
+            errs[name] = side_err(got[name], want)
+        assert errs[name] <= MULTI_TOL, (name, errs[name])
+    dist.destroy_process_group()
+    lines.append({"phase": "multi", "part": "a", "what": "one NCCL rank: each "
+                  "sharded function against its one-device function",
+                  "dataset": "ml-1m synth", "k": k, "backend": mesh.backend,
+                  "routes": {"dense8": [s8.users.route, s8.movies.route]},
+                  "launches": n, "collectives": collectives,
+                  "max_rel_err": errs, "tolerance": MULTI_TOL, **tag})
+    del s8, samplers, calls, got
+
+    # (b) two ranks on the one GPU, gloo on CUDA tensors, against one device
+    one = BPMF(Config(num_latent=k, burnin=2, nsims=chunks * iters, seed=7),
+               train, test, out=devnull, device=dev)
+    one_mets, one_s = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        one_mets.append(one.run_chunk(iters))
+        one_s.append(time.perf_counter() - t0)
+    one_avg = float(one_mets[-1].rmse_avg[-1])
+    one_rmse, one_routes = float(one_mets[-1].rmse[-1]), one.movies.route
+    one_tables = [one.items_host(one.users, one.state_u),
+                  one.items_host(one.movies, one.state_m)]
+    del one
+    ranks = run_ranks(multi_rank_chain, 2, chunks, iters, 7, k, data_kw or {},
+                      device=dev, backend="gloo", timeout_s=300)
+    refused = {r["rank"]: r["refused"] for r in ranks if "refused" in r}
+    if refused:
+        # gloo takes no CUDA tensor for one of the three collectives: the
+        # refusal is the finding (PERF.md quotes it) and (b) stops here
+        lines.append({"phase": "multi", "part": "b", "gloo_refused": refused, **tag})
+        return lines, time.perf_counter() - t_phase
+    for r in ranks:
+        assert r["finite"], r
+        assert r["routes"] == {"movs": "inkernel", "users": "inkernel"}, r["routes"]
+        if dev.type == "cuda":
+            assert r["launches"] == launches(gram_inkernel=2 * chunks * iters,
+                                             solve_shared=2 * chunks * iters), r["launches"]
+        lp_u, r_u, c_m = r["layout"]          # the rank's [R/D, C] of the codes
+        assert r["codes"] == [lp_u, c_m] and r_u == 2 * lp_u, (r["codes"], r["layout"])
+    assert ranks[0]["rmse_avg"] == ranks[1]["rmse_avg"]
+    # both factor tables after the chain, gathered, against one device's
+    tables_diff = max(float(np.abs(a - b).max())
+                      for a, b in zip(ranks[0]["tables"], one_tables))
+    assert abs(ranks[0]["rmse_avg"] - one_avg) <= MULTI_BAND, (ranks[0]["rmse_avg"], one_avg)
+    assert tables_diff <= MULTI_TABLES, (tables_diff, MULTI_TABLES)
+    for key, c in ranks[0]["launches"].items():
+        total[key] += c
+    chunk_s = ranks[0]["chunk_s"]
+    lines.append({"phase": "multi", "part": "b",
+                  "what": "2 ranks on one GPU, gloo through the host (not a "
+                          "speed of the port)", "dataset": "ml-1m synth", "k": k,
+                  "iterations": chunks * iters, "rmse_avg": ranks[0]["rmse_avg"],
+                  "rmse": ranks[0]["rmse"], "one_device_rmse_avg": one_avg,
+                  "one_device_rmse": one_rmse, "one_device_route": one_routes,
+                  "tables_max_abs_diff": tables_diff, "tables_bound": MULTI_TABLES,
+                  "one_device_ms_per_iter": sum(one_s[1:]) / ((chunks - 1) * iters) * 1e3,
+                  "band": MULTI_BAND, "launches_per_rank": ranks[0]["launches"],
+                  "collectives_per_rank": ranks[0]["collectives"],
+                  "codes_per_rank": ranks[0]["codes"],
+                  "gloo_ms_per_iter": sum(chunk_s[1:]) / ((chunks - 1) * iters) * 1e3,
+                  "chunk_s": chunk_s, **tag})
+    return lines, time.perf_counter() - t_phase
 
 
 def main():
@@ -2064,6 +2330,13 @@ def main():
                 dataset="ml-1m synth", k=k, knob=knob)
         emit({"phase": "wide", "chain": f"ml-1m k{k}", **line})
         del sampler
+
+    # 24. multi-device on the one card: (a) one NCCL rank, each sharded
+    # function against its one-device function; (b) two gloo ranks on the
+    # one GPU through BPMF
+    lines, multi_s = multi_phase(train, test, counts, total, tag, devnull)
+    for line in lines:
+        emit({**line, "phase_s": multi_s})
 
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"

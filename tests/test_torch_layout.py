@@ -271,6 +271,90 @@ def test_assign_items_copy_matches():
                 np.testing.assert_array_equal(g, w)
 
 
+BUCKET_FIELDS = ("nbr", "val", "mask", "row_slot", "item_ids", "orig_ids",
+                 "slot_valid", "split")
+
+
+def _multi_maps(module, degrees, n_dev, multiple, balance=True):
+    ids = module.assign_items(degrees, n_dev, balance)
+    return module.make_maps(ids, len(degrees), multiple=multiple)
+
+
+@pytest.mark.parametrize("multiple", [None, 512], ids=["pad8", "dense8"])
+@pytest.mark.parametrize("n_dev", [3, 4])
+def test_make_maps_copy_matches_at_d(n_dev, multiple):
+    """make_maps over n_dev devices, with and without the dense8 block
+    multiple, LPT and contiguous assignment: every field the JAX
+    package's."""
+    degrees = np.random.default_rng(n_dev).integers(0, 60, size=301)
+    for balance in (True, False):
+        want = _multi_maps(jax_part, degrees, n_dev, multiple, balance)
+        got = _multi_maps(port_part, degrees, n_dev, multiple, balance)
+        assert (got.n_devices, got.num, got.local_pad, got.padded_num) == (
+            want.n_devices, want.num, want.local_pad, want.padded_num)
+        for f in ("orig_to_padded", "local_orig", "local_valid"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+        for g, w in zip(got.ids_per_dev, want.ids_per_dev):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("width", [2048, 8])
+@pytest.mark.parametrize("n_dev", [3, 4])
+def test_multi_device_layouts_match(n_dev, width):
+    """At n_dev devices, both sides: build_gather_layout (its stacked
+    [D, ...] buckets, split at width 8), build_dense_layout and each of its
+    rows alone (build_dense_block, what one rank builds), the JAX
+    package's arrays."""
+    train, _ = make_ratings(n_users=60, n_movies=45, density=0.4, seed=n_dev)
+    sides = ((train, train.T.tocsc()), (train.T.tocsc(), train))
+    for side_m, other_m in sides:
+        num, other_num = side_m.shape[1], other_m.shape[1]
+        deg, odeg = np.diff(side_m.indptr), np.diff(other_m.indptr)
+        maps = [_multi_maps(m, deg, n_dev, None) for m in (jax_part, port_part)]
+        other = [_multi_maps(m, odeg, n_dev, None) for m in (jax_part, port_part)]
+        want = jax_part.build_gather_layout(side_m, maps[0], other[0].orig_to_padded,
+                                            width, 2)
+        got = port_part.build_gather_layout(side_m, maps[1], other[1].orig_to_padded,
+                                            width, 2)
+        assert got.splits == want.splits and any(got.splits) == (width == 8)
+        for g, w in zip(got.buckets, want.buckets):
+            assert g.nbr.shape[0] == n_dev
+            for f in BUCKET_FIELDS:
+                np.testing.assert_array_equal(getattr(g, f), getattr(w, f), f)
+        dense = jax_part.build_dense_layout(side_m, maps[0], other[0].orig_to_padded,
+                                            other[0].padded_num)
+        np.testing.assert_array_equal(
+            port_part.build_dense_layout(side_m, maps[1], other[1].orig_to_padded,
+                                         other[1].padded_num), dense)
+        for d in range(n_dev):
+            np.testing.assert_array_equal(
+                port_part.build_dense_block(side_m, maps[1], other[1].orig_to_padded,
+                                            other[1].padded_num, d), dense[d])
+        assert num == maps[1].num and other_num == other[1].num
+
+
+@pytest.mark.parametrize("n_dev", [3, 4])
+def test_stack_buckets_copy_matches_at_d(n_dev):
+    """stack_buckets on per-device bucket lists of different widths and
+    counts (a device may lack a width: it gets an empty bucket), the JAX
+    package's stacked arrays and split flags."""
+    train, _ = make_ratings(n_users=60, n_movies=45, density=0.4, seed=5)
+    num = train.shape[1]
+    rng = np.random.default_rng(n_dev)
+    ids = np.array_split(rng.permutation(num).astype(np.int32), n_dev)
+    out = []
+    for sparse, part in ((jax_sparse, jax_part), (port_sparse, port_part)):
+        per_dev = [sparse.bucketize(train, np.sort(i), -1, max_bucket_width=8 << d,
+                                    growth=2).buckets
+                   for d, i in enumerate(ids)]
+        out.append(part.stack_buckets(per_dev, [len(i) for i in ids], num))
+    (want, want_splits), (got, got_splits) = out
+    assert got_splits == want_splits and len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in BUCKET_FIELDS:
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f), f)
+
+
 def test_counters_copy_matches():
     reports = []
     for m in (jax_counters, port_counters):

@@ -135,7 +135,8 @@ def test_module_entry_point(tmp_path):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    (["--mode", "reduce"], "#6"), (["--devices", "2"], "#6"),
+    (["--mode", "reduce", "--gram-impl", "bucketed"], "#6"),
+    (["--devices", "2", "--halo", "on"], "#6"),
     (["--halo", "on"], "#6"), (["--dist", "h:1,2,0"], "#6"),
     (["--reduce-chunked", "on"], "#6"),
 ])
