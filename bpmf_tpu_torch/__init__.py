@@ -10,10 +10,11 @@ every Gram route of one device (the int8 dense stream with its megakernel
 and split pipeline, the dense and fused-dense adjacency, the degree
 buckets), every solver, the propagated posterior, the output files,
 checkpoints and the perf-debug surfaces; and multi-device over
-``torch.distributed``, one process per rank (``--devices N``): the
-sharded dense8 sweep in gather and reduce mode, gather mode on the dense
-and bucketed routes, and the sharded evaluation (ROADMAP.md lists what is
-still to port).
+``torch.distributed``, one process per rank (``--devices N``, across
+processes ``--dist``): the sharded dense8 sweep in gather and reduce mode,
+gather mode on the dense routes, the buckets in gather mode (all_gather or
+the halo ring) and in reduce mode (plain or chunked), and the sharded
+evaluation (ROADMAP.md lists what is still to port: bf16).
 
     from bpmf_tpu_torch import BPMF, Config, synth_movielens
     train, test = synth_movielens()          # ml-1m-sized synthetic ratings

@@ -10,6 +10,9 @@ Usage: python -m bpmf_tpu_torch -n <MTX> -p <MTX> [-i N] [-b N] [-d K]
                                 [-o DIR] [-v] [--checkpoint FILE] [--resume FILE]
                                 [--ablate ...] [--profile]
                                 [--devices N] [--mode auto|gather|reduce]
+                                [--reduce-chunked auto|on|off]
+                                [--halo auto|on|off]
+                                [--dist HOST:PORT,NPROC,PID]
                                 [--device cuda|cpu] ...
 
 ``--devices N`` (N > 1) starts N ranks on this host, one process each, on a
@@ -18,6 +21,14 @@ free local port: NCCL with one GPU a rank on ``cuda``, gloo on the CPU
 Asking for more GPUs than there are is an error.  Under ``torchrun`` the
 ranks come from the environment instead.  Rank 0 prints and writes the
 files; the other ranks are silent.
+
+``--dist HOST:PORT,NPROC,PID`` (or ``BPMF_DIST``) makes this process one of
+NPROC that run one group together, meeting at ``tcp://HOST:PORT``, where
+process 0 serves the store (``bpmf_tpu/cli.py:102``).  ``--devices N``
+then counts the ranks of the whole run (``0``: NPROC times this host's
+GPUs, one rank a process on the CPU), N / NPROC of them in each process,
+which holds global ranks ``PID * N / NPROC`` on; each takes its GPU by
+its place on its host.  Only global rank 0 prints.
 
 A flag whose feature is not ported yet stops the run with an error naming
 its ROADMAP.md entry.
@@ -30,7 +41,7 @@ import os
 import sys
 
 from bpmf_tpu_torch.config import Config
-from bpmf_tpu_torch.sampler import DIST, unsupported
+from bpmf_tpu_torch.sampler import unsupported
 
 __all__ = ["build_parser", "config_from_args", "main"]
 
@@ -108,7 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "nopredict", "nohyper", "nonoise"],
                    help="perf-debug: skip a sweep phase to isolate its cost")
     p.add_argument("--dist", default="", metavar="HOST:PORT,NPROC,PID",
-                   help="join a multi-host run")
+                   help="join a run over NPROC processes: the store's "
+                        "address, the process count, this process's id; "
+                        "also settable via BPMF_DIST")
     p.add_argument("--platform", default="", metavar="NAME",
                    help="a JAX platform; this package takes --device")
     p.add_argument("--device", default="cuda",
@@ -160,41 +173,61 @@ def main(argv=None) -> int:
         return 1
     cfg = config_from_args(args)
     problems = unsupported(cfg)
-    if args.dist:
-        problems.append(f"--dist: not ported yet, see {DIST}")
     if args.platform:
         problems.append("--platform selects a JAX platform; this package "
                         "takes --device")
     if problems:
         parser.error("; ".join(problems))
 
-    from bpmf_tpu_torch.parallel.mesh import mesh_from_env, resolve_n_devices
+    from bpmf_tpu_torch.parallel import mesh as pm
 
-    mesh = mesh_from_env(args.device)  # a rank of torchrun
-    if mesh is not None:
-        try:
-            return _run(cfg, args.device, mesh)
-        finally:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
     try:
-        n = resolve_n_devices(cfg.n_devices, args.device)
+        spec = pm.dist_spec(args.dist or None)
+    except ValueError as e:
+        parser.error(str(e))
+    mesh = None if spec else pm.mesh_from_env(args.device)  # a rank of torchrun
+    if mesh is not None:
+        return _run_rank(cfg, args.device, mesh)
+    try:
+        if spec is None:
+            n = pm.resolve_n_devices(cfg.n_devices, args.device)
+            per, offset = n, 0
+        else:
+            n = cfg.n_devices or spec.num_processes * pm.resolve_n_devices(
+                0, args.device)
+            per, offset = pm.dist_ranks(n, spec)
+            pm.resolve_n_devices(per, args.device)   # this host's share
     except ValueError as e:
         print(f"bpmf: error: {e}", file=sys.stderr)
         return 1
-    if n <= 1:
+    if spec is None and n <= 1:
         return _run(cfg, args.device, None)
+    init = spec.init_method if spec else None
+    if per == 1 and spec is not None:
+        # one rank in this process: it joins the group itself
+        mesh = pm.init_mesh(offset, n, init, args.device, local=0)
+        return _run_rank(cfg, args.device, mesh)
     from bpmf_tpu_torch.parallel.launch import run_ranks
 
-    threads = (max(1, (os.cpu_count() or 1) // n)
+    threads = (max(1, (os.cpu_count() or 1) // per)
                if args.device == "cpu" else None)
     try:
-        codes = run_ranks(_rank, n, argv, device=args.device, threads=threads)
+        codes = run_ranks(_rank, per, argv, device=args.device, threads=threads,
+                          rank_offset=offset, world_size=n, init_method=init)
     except RuntimeError as e:
         print(f"bpmf: error: {e}", file=sys.stderr)
         return 1
     return max(codes)
+
+
+def _run_rank(cfg: Config, device, mesh) -> int:
+    """The run of one rank that this process joined to its group."""
+    try:
+        return _run(cfg, device, mesh)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def _rank(mesh, argv) -> int:

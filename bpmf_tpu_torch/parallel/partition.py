@@ -13,14 +13,22 @@ must have identical shapes: buckets are built per device and then padded to
 the union of widths and the per-width maxima, stacked with a leading device
 axis that shard_map splits.
 
-Copy of ``bpmf_tpu/parallel/partition.py`` with the layouts of gather mode
-at any device count: :class:`GatherLayout` (each device owns a shard of
-this side's items and the neighbor indices point into the OTHER side's
-padded global index space) and the dense adjacency blocks.  Every rank of a
-multi-device run builds the same maps and keeps only its own row of the
-stacked [D, ...] layouts on its device (``sampler.BPMF``; a dense block is
-built for that row alone, :func:`build_dense_block`).  The halo layout and
-the reduce layouts are still to port (ROADMAP.md Queue 1 #6, the rest).
+Copy of ``bpmf_tpu/parallel/partition.py``.  Its layouts mirror the
+reference's two exchange families (SURVEY.md §2):
+
+* :class:`GatherLayout` — value exchange: each device owns a shard of this
+  side's items and the neighbor indices point into the OTHER side's padded
+  global index space (consumed after an all_gather, or after the halo ring
+  of :class:`HaloLayout`); and the dense adjacency blocks.
+* :class:`ReduceLayout` — statistic exchange (ENABLE_REDUCE,
+  c++/sample.cpp:234-258): each device holds the edges whose OTHER-side
+  endpoint it owns, grouped by this side's items in padded global order, so
+  per-item (Gram, rhs) partials reduce-scatter straight onto the owner
+  shard; :class:`ReduceLayoutChunked` groups them by destination shard.
+
+Every rank of a multi-device run builds the same maps and keeps only its
+own row of the stacked [D, ...] layouts on its device (``sampler.BPMF``; a
+dense block is built for that row alone, :func:`build_dense_block`).
 """
 
 from __future__ import annotations
@@ -40,6 +48,12 @@ __all__ = [
     "build_gather_layout",
     "build_dense_layout",
     "build_dense_block",
+    "HaloLayout",
+    "build_halo_layout",
+    "ReduceLayout",
+    "ReduceLayoutChunked",
+    "build_reduce_layout",
+    "build_reduce_layout_chunked",
     "stack_buckets",
 ]
 
@@ -288,3 +302,242 @@ def build_dense_block(
     sub = m_csc[:, maps.ids_per_dev[d]].tocoo()  # rows: other orig, cols: local slot
     out[sub.col, other_map[sub.row]] = sub.data.astype(np.float32)
     return out
+
+
+@dataclasses.dataclass
+class HaloLayout:
+    """Connectivity-aware value exchange for one side's sweep (the
+    TPU-native analog of the reference's opt_conn connectivity
+    optimization, c++/assign.cpp:215-286, which the reference itself ships
+    disabled).
+
+    Instead of all_gather-ing the whole frozen other side ((D-1)/D · N
+    rows per device), each device receives only the other-side rows its
+    local ratings actually reference, exchanged pairwise over D-1
+    ``ppermute`` rounds (ring schedule on the ICI/DCN mesh axis).  The
+    received rows are scattered into a buffer in the same padded global
+    layout the bucket ``nbr`` indices already use, so the sweep downstream
+    is untouched; rows nobody references stay zero and only ever meet
+    mask-zeroed reads (ops/update.gram_rhs).  Pure comm-volume
+    optimization — the trajectory is bitwise the one all_gather produces.
+
+    Worth it only when connectivity is sparse (per-pair halo ≪ shard
+    size): MovieLens-style dense connectivity needs nearly every row
+    everywhere and the plain all_gather collective is strictly better
+    (``volume_ratio`` ≈ 1, and the auto mode keeps all_gather)."""
+
+    send_rows: tuple        # per ring round r=1..D-1: [D, H_r] int32 —
+                            # row s: local row indices of src s's other-side
+                            # shard needed by dst (s+r)%D
+    recv_pos: tuple         # per round: [D, H_r] int32 — row t: padded
+                            # global positions where rows from (t-r)%D land
+                            # on t; padding entries -> N (a dump slot)
+    pair_counts: np.ndarray  # [D, D] int64 — TRUE (unpadded) rows src needs
+                             # to send to dst; the per-pair message-count
+                             # matrix (assign.cpp:238-250 analog)
+    halo_rows: int          # max_r H_r (banner; per-round widths vary)
+    volume_ratio: float     # padded halo volume / all_gather volume
+
+
+def build_halo_layout(
+    m_csc: sp.csc_matrix,
+    maps: SideMaps,
+    other_maps: SideMaps,
+) -> HaloLayout:
+    """For the sweep updating THIS side (``maps``): which OTHER-side rows
+    each device's local ratings reference.  ``m_csc``: [num_other, num_this]
+    with this side's items as columns (same orientation as
+    :func:`build_gather_layout`).
+
+    Payload widths are padded PER RING ROUND (H_r = max over the pairs at
+    ring distance r, 8-aligned) rather than one global max: SPMD needs a
+    uniform shape within a round, but skewed connectivity — one heavy pair
+    — then inflates only its own round's payload, not all D-1 of them."""
+    n_dev = maps.n_devices
+    lp = other_maps.local_pad
+    other_map = np.asarray(other_maps.orig_to_padded, np.int64)
+
+    # per-destination-device needed other-side padded ids
+    need = []
+    for ids in maps.ids_per_dev:
+        if len(ids) == 0:
+            need.append(np.zeros((0,), np.int64))
+            continue
+        sub = m_csc[:, ids]
+        need.append(np.unique(other_map[np.unique(sub.indices)]))
+
+    lists: list[list[np.ndarray]] = [
+        [np.zeros((0,), np.int32)] * n_dev for _ in range(n_dev)
+    ]
+    pair_counts = np.zeros((n_dev, n_dev), np.int64)
+    for t in range(n_dev):
+        src = need[t] // lp
+        loc = (need[t] % lp).astype(np.int32)
+        for s in range(n_dev):
+            if s == t:
+                continue
+            sel = loc[src == s]
+            lists[s][t] = sel
+            pair_counts[s, t] = len(sel)
+
+    n_global = other_maps.padded_num
+    send_rows, recv_pos, h_max, h_sum = [], [], 0, 0
+    for r in range(1, n_dev):
+        h_r = max(len(lists[s][(s + r) % n_dev]) for s in range(n_dev))
+        h_r = max(8, -(-h_r // 8) * 8)  # 8-sublane-aligned [H, K] payloads
+        h_max, h_sum = max(h_max, h_r), h_sum + h_r
+        sr = np.zeros((n_dev, h_r), np.int32)
+        rp = np.full((n_dev, h_r), n_global, np.int32)  # pad -> dump slot
+        for s in range(n_dev):
+            t = (s + r) % n_dev
+            sel = lists[s][t]
+            sr[s, : len(sel)] = sel
+            rp[t, : len(sel)] = s * lp + sel
+        send_rows.append(sr)
+        recv_pos.append(rp)
+    ratio = h_sum / ((n_dev - 1) * lp) if lp and n_dev > 1 else 1.0
+    return HaloLayout(
+        send_rows=tuple(send_rows),
+        recv_pos=tuple(recv_pos),
+        pair_counts=pair_counts,
+        halo_rows=h_max,
+        volume_ratio=ratio,
+    )
+
+
+@dataclasses.dataclass
+class ReduceLayout:
+    """Statistic-exchange layout for updating one side (ENABLE_REDUCE).
+
+    Device d holds the edges whose other-side endpoint d owns; bucket
+    ``item_ids`` are THIS side's padded global indices (segment ids for the
+    psum_scatter), ``nbr`` are LOCAL other-side slots."""
+
+    buckets: list[Bucket]  # stacked, leading dim D
+    splits: tuple
+
+
+@dataclasses.dataclass
+class ReduceLayoutChunked:
+    """Memory-scaling variant of :class:`ReduceLayout`: edges are grouped by
+    the DESTINATION shard of this side's items, so the sweep accumulates one
+    [local_pad, K, K] partial per destination device instead of a
+    [padded_num, K, K] buffer (O(global) per device — 667 MB/device at
+    ml-25M users K=32, impossible at 10M-item sides).  The reference's
+    REDUCE mode has the same owner-slice structure (c++/mpi_reduce.h:29-45
+    reduces one rank's slice at a time).
+
+    ``per_dest[d']`` holds the stacked buckets (leading axis = source
+    device) whose items live on destination shard d'; bucket ``item_ids``
+    are LOCAL slots on d'."""
+
+    per_dest: list          # [D] of (buckets list, splits tuple)
+
+
+def build_reduce_layout_chunked(
+    m_csc: sp.csc_matrix,
+    this_maps: SideMaps,
+    other_ids_per_dev: list[np.ndarray],
+    max_bucket_width: int = 4096,
+    growth: int = 4,
+) -> ReduceLayoutChunked:
+    """m_csc: [num_other, num_this].  For each destination shard d' of this
+    side, bucketize the edges (other-owner device x d'-owned columns); slot
+    indices are d'-local, noise ids stay global."""
+    num = m_csc.shape[1]
+    local_pad = this_maps.local_pad
+    per_dest = []
+    for ids_dst in this_maps.ids_per_dev:
+        if len(ids_dst) == 0:
+            # a destination shard can own zero items (fewer items than
+            # devices); its chunk contributes no buckets at all
+            per_dest.append(([], ()))
+            continue
+        m_dest = m_csc[:, ids_dst].tocsc()  # columns renumbered 0..len-1
+        per_dev: list[list[Bucket]] = []
+        for ids_v in other_ids_per_dev:
+            m_local = m_dest[ids_v, :].tocsc()
+            cols = np.flatnonzero(np.diff(m_local.indptr) > 0).astype(np.int32)
+            if len(cols) == 0:
+                cols = np.asarray([0], np.int32)
+            side = bucketize(
+                m_local, cols, scratch_id=-1,
+                max_bucket_width=max_bucket_width, growth=growth,
+            )
+            bs = []
+            for b in side.buckets:
+                real = b.slot_valid > 0
+                # restricted column index IS the local slot on d' (slots
+                # are assigned in ids order by make_maps); padding slots
+                # aim at the last local slot, which is always dead
+                # padding slots carry scratch_id=-1; clip before the fancy
+                # index (the value is masked out by `real` anyway)
+                safe = np.clip(np.abs(b.orig_ids), 0, len(ids_dst) - 1)
+                item_ids = np.where(real, np.abs(b.item_ids), local_pad - 1)
+                orig_ids = np.where(real, ids_dst[safe], num)
+                bs.append(
+                    Bucket(
+                        nbr=b.nbr,
+                        val=b.val,
+                        mask=b.mask,
+                        row_slot=b.row_slot,
+                        item_ids=item_ids.astype(np.int32),
+                        orig_ids=orig_ids.astype(np.int32),
+                        slot_valid=b.slot_valid,
+                        split=b.split,
+                    )
+                )
+            per_dev.append(bs)
+        scratch_ids = [local_pad - 1] * len(other_ids_per_dev)
+        per_dest.append(stack_buckets(per_dev, scratch_ids, orig_scratch=num))
+    return ReduceLayoutChunked(per_dest=per_dest)
+
+
+def build_reduce_layout(
+    m_csc: sp.csc_matrix,
+    this_orig_to_padded: np.ndarray,
+    this_padded_num: int,
+    other_ids_per_dev: list[np.ndarray],
+    max_bucket_width: int = 4096,
+    growth: int = 4,
+) -> ReduceLayout:
+    """m_csc: [num_other, num_this]; rows are split by other-side ownership
+    (preComputeMuLambda's local_only filter, c++/sample.cpp:248-258)."""
+    num = m_csc.shape[1]
+    this_map = np.asarray(this_orig_to_padded, np.int64)
+    per_dev: list[list[Bucket]] = []
+    for ids_v in other_ids_per_dev:
+        m_local = m_csc[ids_v, :].tocsc()  # rows renumbered 0..len(ids_v)-1
+        cols = np.flatnonzero(np.diff(m_local.indptr) > 0).astype(np.int32)
+        if len(cols) == 0:
+            cols = np.asarray([0], np.int32)
+        side = bucketize(
+            m_local, cols, scratch_id=-1, max_bucket_width=max_bucket_width,
+            growth=growth,
+        )
+        bs = []
+        for b in side.buckets:
+            real = b.slot_valid > 0
+            # segment target: padded global id of this side's item; padding
+            # slots aim at the last padded position (a dead slot on the last
+            # shard: this_padded_num-1 is always >= its shard's local num).
+            item_ids = np.where(
+                real, this_map[np.abs(b.item_ids)], this_padded_num - 1
+            )
+            orig_ids = np.where(real, b.orig_ids, num)
+            bs.append(
+                Bucket(
+                    nbr=b.nbr,
+                    val=b.val,
+                    mask=b.mask,
+                    row_slot=b.row_slot,
+                    item_ids=item_ids.astype(np.int32),
+                    orig_ids=orig_ids.astype(np.int32),
+                    slot_valid=b.slot_valid,
+                    split=b.split,
+                )
+            )
+        per_dev.append(bs)
+    scratch_ids = [this_padded_num - 1] * len(other_ids_per_dev)
+    buckets, splits = stack_buckets(per_dev, scratch_ids, orig_scratch=num)
+    return ReduceLayout(buckets=buckets, splits=splits)

@@ -3,16 +3,23 @@
 The half-sweeps of every Gram route: the int8 dense stream on one device
 (:func:`dense8_half_sweep`) and sharded over ranks
 (:func:`dense8_half_sweep_sharded`), the dense adjacency
-(:func:`dense_half_sweep`, :func:`dense_half_sweep_fused`) and the degree
-buckets in gather mode (:func:`gather_half_sweep`), and the sharded
-evaluation (:func:`predict_sharded`).  They keep their JAX names.
+(:func:`dense_half_sweep`, :func:`dense_half_sweep_fused`), the degree
+buckets in gather mode (:func:`gather_half_sweep`, with the halo ring
+:func:`halo_gather`) and in reduce mode (:func:`reduce_half_sweep`,
+:func:`reduce_half_sweep_chunked`), and the sharded evaluation
+(:func:`predict_sharded`).  They keep their JAX names.
 
 Multi-device (``mesh``, a :class:`~bpmf_tpu_torch.parallel.mesh.Mesh` of
 one process per rank): each rank holds its shard of both sides' items.
 Gather mode all-gathers the frozen side in front of the one-device body
-(``spmd.py:205``, ``:339``, ``:519``); the sharded dense8 sweep gathers the
-frozen movies on the users' sweep and reduce-scatters the partial Gram and
-rhs of its user rows on the movies' sweep (``spmd.py:934``).  Every sweep
+(``spmd.py:205``, ``:339``, ``:519``), or on the buckets receives only the
+rows its ratings reference over the halo ring; reduce mode on the buckets
+never moves the frozen side: each rank sums the partial Gram and rhs of
+the ratings whose frozen item it owns, and the partials meet on their
+item's owner (``spmd.py:616``, ``:1106``).  The sharded dense8 sweep
+gathers the frozen movies on the users' sweep and reduce-scatters the
+partial Gram and rhs of its user rows on the movies' sweep
+(``spmd.py:934``).  Every sweep
 then sums (sum, prod, norm) over ranks in one ``all_reduce`` of one packed
 buffer, so the covariance is the exact global one, not the reference
 C++'s per-rank form.  With ``mesh=None`` (one device) there is no
@@ -60,7 +67,7 @@ from bpmf_tpu_torch.ops.pallas_solve import (
     tri_combine_solve_sample,
     tri_tight_pairs,
 )
-from bpmf_tpu_torch.ops.update import BucketDev, posterior_precision_rhs
+from bpmf_tpu_torch.ops.update import BucketDev, gram_rhs, posterior_precision_rhs
 from bpmf_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
@@ -70,7 +77,10 @@ __all__ = [
     "dense_half_sweep_fused",
     "exchange_stats",
     "gather_half_sweep",
+    "halo_gather",
     "predict_sharded",
+    "reduce_half_sweep",
+    "reduce_half_sweep_chunked",
 ]
 
 
@@ -307,16 +317,19 @@ def gather_half_sweep(
     prop_lambda: Optional[torch.Tensor] = None,  # [num_pad, K, K]
     ablate: str = "",                            # perf-debug (Config.ablate)
     mesh: Optional[Mesh] = None,
+    halo: Optional[tuple] = None,  # (send_rows, recv_pos): this rank's row
+                                   # of each ring round (HaloLayout)
 ) -> SideState:
     """Value-exchange half-sweep over the degree buckets
     (``bpmf_tpu.parallel.spmd.gather_half_sweep``): with a mesh, the
-    all_gather of the frozen side; then the per-bucket Gram, one combine
-    and solve (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`), the
-    scatter, and the stats summed over ranks.  The halo ring that the JAX
-    package can take in place of the all_gather is not ported: it moves
-    the same values."""
+    all_gather of the frozen side, or with ``halo`` the ring of
+    :func:`halo_gather`, which moves only the referenced rows (the same
+    values on every row a bucket reads); then the per-bucket Gram, one
+    combine and solve (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`), the
+    scatter, and the stats summed over ranks."""
     if mesh is not None:
-        other_items = mesh.all_gather(other_items)
+        other_items = (halo_gather(mesh, other_items, *halo)
+                       if halo is not None else mesh.all_gather(other_items))
     items, s, prod, norm, aggr_mu, aggr_prod = sweep_core(
         state.items, state.aggr_mu, state.aggr_prod, buckets, other_items,
         hp, noise, it, mean_rating=mean_rating, alpha=alpha, burnin=burnin,
@@ -325,6 +338,152 @@ def gather_half_sweep(
         prop_lambda=prop_lambda, ablate=ablate)
     s, prod, norm = exchange_stats(mesh, s, prod, norm)
     return _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod)
+
+
+def halo_gather(mesh: Mesh, other_l: torch.Tensor, send_rows: Sequence,
+                recv_pos: Sequence) -> torch.Tensor:
+    """The frozen side's rows that this rank's buckets reference, in the
+    padded global layout ``[D * lp, K]`` (``bpmf_tpu.parallel.spmd.
+    halo_gather``; the reference's opt_conn, c++/assign.cpp:215-286).
+    ``other_l`` [lp, K] is this rank's shard; round r = 1..D-1 sends its
+    rows ``send_rows[r-1]`` to rank (me+r) % D (:meth:`Mesh.ppermute`) and
+    writes the rows received from (me-r) % D at ``recv_pos[r-1]``, padding
+    entries at the dump slot ``D * lp``.  Every row a bucket reads equals
+    the all_gather's, and so does the own shard; the others stay zero and
+    are read only under a zero mask (``ops.update.gram_rhs``)."""
+    lp, k = other_l.shape
+    n_global = mesh.size * lp
+    buf = other_l.new_zeros((n_global + 1, k))
+    buf[mesh.rank * lp:(mesh.rank + 1) * lp] = other_l
+    for r in range(1, mesh.size):
+        recv = mesh.ppermute(other_l.index_select(0, send_rows[r - 1]), r)
+        buf.index_copy_(0, recv_pos[r - 1], recv)
+    return buf[:n_global]
+
+
+def _reduce_solve(state, packed, hp, noise, it, *, num, local_valid, alpha,
+                  burnin, diagonal_only, strict_reference, solver, prop_mu,
+                  prop_lambda, mesh):
+    """The tail of both reduce sweeps: the owner's summed [lp, K*K + K]
+    Gram and rhs, the prior combine per local slot, the side's solver, the
+    stats."""
+    k = noise.shape[-1]
+    lp = packed.shape[0]
+    precision, rhs = posterior_precision_rhs(
+        packed[:, :k * k].reshape(lp, k, k), packed[:, k * k:],
+        torch.arange(lp, device=packed.device), hp, alpha, prop_mu=prop_mu,
+        prop_lambda=prop_lambda, diagonal_only=diagonal_only,
+        strict_reference=strict_reference)
+    del packed
+    u = get_solver(solver)(precision, rhs, noise)
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
+
+
+def _partials(buckets, splits, other_l, mean_rating, alpha, ablate, rows):
+    """The partial Gram and rhs of ``buckets`` against this rank's frozen
+    shard ``other_l`` (the buckets' ``nbr`` are its local slots), summed by
+    their slots' ``item_ids`` into ``rows`` rows of [K*K + K], Gram first;
+    padding slots add zeros (``slot_valid``)."""
+    k = other_l.shape[-1]
+    out = other_l.new_zeros((rows, k * k + k))
+    for b, split in zip(buckets, splits):
+        g, r = gram_rhs(b, other_l, mean_rating, alpha, split=split,
+                        n_slots=b.item_ids.shape[0], ablate=ablate)
+        out.index_add_(0, b.item_ids,
+                       torch.cat([g.reshape(-1, k * k), r], 1)
+                       * b.slot_valid[:, None])
+    return out
+
+
+def reduce_half_sweep(
+    state: SideState,
+    buckets: Sequence[BucketDev],  # this rank's row of the ReduceLayout
+    other_items: torch.Tensor,     # [other lp, K] this rank's frozen shard
+    hp: HyperParams,
+    noise: torch.Tensor,           # [lp, K] N(0, I) by orig id (local slots)
+    it: int,
+    *,
+    num: int,
+    padded_num: int,               # D * lp of THIS side
+    local_valid: torch.Tensor,     # [lp]
+    mean_rating,
+    alpha: float,
+    burnin: int,
+    splits: Sequence[bool],
+    diagonal_only: bool = False,
+    strict_reference: bool = True,
+    solver: str = "smart",
+    prop_mu: Optional[torch.Tensor] = None,      # [lp, K]
+    prop_lambda: Optional[torch.Tensor] = None,  # [lp, K, K]
+    ablate: str = "",
+    mesh: Optional[Mesh] = None,
+) -> SideState:
+    """Statistic-exchange half-sweep over the degree buckets (``bpmf_tpu.
+    parallel.spmd.reduce_half_sweep``; ENABLE_REDUCE): the partial Gram
+    and rhs of the ratings whose frozen item this rank owns, against its
+    own shard, which is never gathered, summed by padded global item id
+    into one [padded_num, K*K + K] buffer; one ``reduce_scatter`` leaves
+    each owner the sums of its [lp, K*K + K] (the JAX package's two
+    ``psum_scatter``, packed into one).  Then the prior combine over the
+    rank's slots, the side's solver (#8 under smart/pallas) and the stats
+    summed over ranks."""
+    packed = _partials(buckets, splits, other_items, mean_rating, alpha,
+                       ablate, padded_num)
+    if mesh is not None:
+        packed = mesh.reduce_scatter(packed)
+    return _reduce_solve(
+        state, packed, hp, noise, it, num=num, local_valid=local_valid,
+        alpha=alpha, burnin=burnin, diagonal_only=diagonal_only,
+        strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
+        prop_lambda=prop_lambda, mesh=mesh)
+
+
+def reduce_half_sweep_chunked(
+    state: SideState,
+    per_dest: Sequence[tuple],     # [D] of (buckets, splits): this rank's
+                                   # row of each destination's buckets
+    other_items: torch.Tensor,     # [other lp, K] this rank's frozen shard
+    hp: HyperParams,
+    noise: torch.Tensor,           # [lp, K] N(0, I) by orig id (local slots)
+    it: int,
+    *,
+    num: int,
+    local_valid: torch.Tensor,     # [lp]
+    mean_rating,
+    alpha: float,
+    burnin: int,
+    diagonal_only: bool = False,
+    strict_reference: bool = True,
+    solver: str = "smart",
+    prop_mu: Optional[torch.Tensor] = None,      # [lp, K]
+    prop_lambda: Optional[torch.Tensor] = None,  # [lp, K, K]
+    ablate: str = "",
+    mesh: Optional[Mesh] = None,
+) -> SideState:
+    """:func:`reduce_half_sweep` in O(lp * K^2) memory a rank (``bpmf_tpu.
+    parallel.spmd.reduce_half_sweep_chunked``; the reference reduces one
+    owner's slice at a time, c++/mpi_reduce.h:29-45): one destination
+    shard at a time, the partial [lp, K*K + K] of the buckets whose items
+    it owns (``item_ids`` its local slots), one ``all_reduce`` (the JAX
+    package's ``psum``), and only the owner keeps the sum.  No tensor of
+    padded_num rows exists.  Every rank enters every destination's
+    all_reduce in the same order, an empty destination's too."""
+    lp = local_valid.shape[0]
+    rank = 0 if mesh is None else mesh.rank
+    mine = None
+    for dest, (buckets, splits) in enumerate(per_dest):
+        part = _partials(buckets, splits, other_items, mean_rating, alpha,
+                         ablate, lp)
+        if mesh is not None:
+            part = mesh.all_reduce(part)
+        if dest == rank:
+            mine = part
+        del part
+    return _reduce_solve(
+        state, mine, hp, noise, it, num=num, local_valid=local_valid,
+        alpha=alpha, burnin=burnin, diagonal_only=diagonal_only,
+        strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
+        prop_lambda=prop_lambda, mesh=mesh)
 
 
 def dense_half_sweep(

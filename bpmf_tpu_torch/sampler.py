@@ -13,14 +13,15 @@ float32 ratings on an exact grid; else the dense adjacency while it fits
 ``dense_limit_bytes`` (fused with the packed-triangle solve where that is
 eligible), and the degree buckets beyond.  Iterations run as a Python loop
 with one host sync per chunk.  At D > 1 ranks a dense8 side takes the
-sharded sweep (the split pipeline, in gather and in reduce mode) and the
-other routes run in gather mode; the evaluation is entry-sharded.
+sharded sweep (the split pipeline, in gather and in reduce mode), the dense
+routes run in gather mode, and the buckets in gather mode (an all_gather
+of the frozen side, or the halo ring) or in reduce mode (the partial
+statistics reduce-scattered onto their owners, or all-reduced one
+destination at a time in the chunked form); the evaluation is
+entry-sharded.
 
 Features outside the ported slices raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` entry; none is ignored: bf16 matmul inputs, and of
-multi-device the halo ring (``--halo on``), bucketed reduce (a side that
-takes the buckets in ``--mode reduce``) with its chunked form
-(``--reduce-chunked``), and ``--dist`` (the CLI).
+their ``ROADMAP.md`` entry; none is ignored: bf16 matmul inputs.
 
 Beside the chain: the aggregated posterior and the six output files (``-o``)
 with the per-iteration dumps (``-v``), checkpoints and resume
@@ -77,16 +78,15 @@ from bpmf_tpu_torch.parallel.spmd import (
     dense_half_sweep_fused,
     gather_half_sweep,
     predict_sharded,
+    reduce_half_sweep,
+    reduce_half_sweep_chunked,
 )
 from bpmf_tpu_torch.utils.counters import Counters, tick
 
-__all__ = ["BPMF", "HostDraws", "Side", "TorchDraws", "unsupported"]
+__all__ = ["BPMF", "HostDraws", "Side", "TorchDraws", "rank_buckets",
+           "unsupported"]
 
 SPLIT = "ROADMAP.md Queue 1 #3 (bf16 matmul inputs)"
-MULTI = "ROADMAP.md Queue 1 #6 (multi-device)"
-HALO = f"{MULTI[:-1]}, rest 1: the halo ring)"
-REDUCE = f"{MULTI[:-1]}, rest 2: bucketed reduce and its chunked form)"
-DIST = f"{MULTI[:-1]}, rest 3: --dist and multihost)"
 # the ablations that keep a side on its dense8 or fused dense route
 # (bpmf_tpu/sampler.py:296-297, :486-487: Config.ablate as a whole string);
 # any other value sends dense8 data to the dense or bucketed route
@@ -108,10 +108,6 @@ def unsupported(cfg: Config) -> list[str]:
     """Why ``cfg`` asks for something outside the ported slice, one line per
     feature, each naming its ROADMAP.md entry; empty when it is all in."""
     checks = [
-        (cfg.halo == "on", "--halo on", HALO),
-        (cfg.comm_mode == "reduce" and cfg.gram_impl == "bucketed",
-         "--mode reduce with --gram-impl bucketed (bucketed reduce)", REDUCE),
-        (cfg.reduce_chunked != "auto", "--reduce-chunked", REDUCE),
         (cfg.resolve_matmul_dtype("cuda") != "float32",
          f"matmul_dtype {cfg.matmul_dtype}", SPLIT),
     ]
@@ -197,6 +193,11 @@ class Side:
         self.route: Optional[str] = None
         self.prop_mu: Optional[np.ndarray] = None      # [num, K]
         self.prop_lambda: Optional[np.ndarray] = None  # [num, K, K]
+        # set by BPMF.setup on a bucketed side: how its sweep meets the
+        # other ranks (gather | halo | reduce | reduce_chunked), and the
+        # halo layout it took
+        self.exchange: Optional[str] = None
+        self.halo: Optional[part.HaloLayout] = None
 
     def add_prop_posterior(self, fnames: str, num_latent: int) -> None:
         """Load the propagated posterior '-m/-l mu.ddm,Lambda.ddm'
@@ -248,9 +249,28 @@ class _SideAux(NamedTuple):
     # the indicator transposed on a fused side
     dense: Optional[tuple] = None
     # bucketed sides: the buckets, their split flags, their slots' ids
+    # (gather mode: the noise is drawn per bucket slot); in reduce mode the
+    # reduce layout's, and in its chunked form (buckets, splits) per
+    # destination instead
     buckets: tuple = ()
     splits: tuple = ()
     bucket_orig: Optional[torch.Tensor] = None  # [sum of slots]
+    per_dest: tuple = ()
+    # the halo ring's (send_rows, recv_pos), this rank's row of each round
+    halo: Optional[tuple] = None
+
+
+def rank_buckets(buckets, rank: int, dtype, device) -> tuple:
+    """Rank ``rank``'s row of stacked [D, ...] host buckets
+    (``parallel.partition.stack_buckets``), on ``device``."""
+    if not buckets:
+        return ()
+    arrays = [f.name for f in dataclasses.fields(buckets[0]) if f.name != "split"]
+    return tuple(
+        BucketDev.from_bucket(
+            dataclasses.replace(b, **{n: getattr(b, n)[rank] for n in arrays}),
+            dtype, device)
+        for b in buckets)
 
 
 class BPMF:
@@ -366,9 +386,9 @@ class BPMF:
         At D > 1 ranks (``bpmf_tpu/sampler.py:289-375``) the dense8 budget
         is per device and dense8 takes only ``SHARDED_D8_ABLATIONS``; a
         dense8 side runs the split pipeline (the sharded sweep), its route
-        decided on the local shapes; ``--mode reduce`` rides the dense8
-        program on dense8 sides and sends the others to the buckets, whose
-        reduce sweep is not ported and raises."""
+        decided on the local shapes.  ``--mode reduce`` rides the dense8
+        program on dense8 sides and sends the others to the buckets, at
+        any rank count, D = 1 included (``bpmf_tpu/sampler.py:362-368``)."""
         cfg = self.cfg
         k = cfg.num_latent
         d = self.n_devices
@@ -407,11 +427,6 @@ class BPMF:
 
         self.movies.impl = impl(self.movies, self.users)
         self.users.impl = impl(self.users, self.movies)
-        for side in sides:
-            if self.mode == "reduce" and side.impl == "bucketed":
-                raise NotImplementedError(
-                    f"--mode reduce sends the {side.name} side to the degree "
-                    f"buckets (bucketed reduce): not ported yet, see {REDUCE}")
         if any(s.impl == "dense8" for s in sides):
             for side in sides:
                 side.maps = part.make_maps(side.maps.ids_per_dev, side.num,
@@ -597,20 +612,58 @@ class BPMF:
                 a_ind = a_ind.t().contiguous()
             aux["dense"] = (a_ind, torch.as_tensor(val, dtype=dtype, device=dev))
         elif side.impl == "bucketed":
-            layout = part.build_gather_layout(
-                side.m, side.maps, other.maps.orig_to_padded,
-                cfg.max_bucket_width, cfg.bucket_growth)
-            arrays = [f.name for f in dataclasses.fields(layout.buckets[0])
-                      if f.name != "split"]
-            buckets = tuple(  # stacked [D, ...]: this rank's row
-                BucketDev.from_bucket(
-                    dataclasses.replace(b, **{n: getattr(b, n)[self.rank]
-                                              for n in arrays}),
-                    dtype, dev)
-                for b in layout.buckets)
-            aux.update(buckets=buckets, splits=layout.splits,
-                       bucket_orig=torch.cat([b.orig_ids for b in buckets]))
+            aux.update(self._bucket_aux(side, other))
         return _SideAux(**aux)
+
+    def _bucket_aux(self, side: Side, other: Side) -> dict:
+        """A bucketed side's layout, this rank's row of it
+        (``bpmf_tpu/sampler.py:398-438``): in reduce mode the reduce
+        layout, chunked by destination under ``--reduce-chunked on`` or,
+        at D > 1 under ``auto``, when the [padded_num, K, K] stat buffer
+        would pass ``reduce_chunk_limit_bytes``; in gather mode the gather
+        layout, with the halo ring under ``--halo on`` or, at D > 1 under
+        ``auto``, when it at most halves the all_gather's volume."""
+        cfg, d = self.cfg, self.n_devices
+
+        def row(buckets) -> tuple:
+            return rank_buckets(buckets, self.rank, self.dtype, self.device)
+
+        if self.mode == "reduce":
+            full_buf = (side.maps.padded_num * cfg.num_latent ** 2
+                        * torch.finfo(self.dtype).bits // 8)
+            if cfg.reduce_chunked == "on" or (
+                    cfg.reduce_chunked == "auto" and d > 1
+                    and full_buf > cfg.reduce_chunk_limit_bytes):
+                layout = part.build_reduce_layout_chunked(
+                    side.m, side.maps, other.maps.ids_per_dev,
+                    cfg.max_bucket_width, cfg.bucket_growth)
+                side.exchange = "reduce_chunked"
+                return dict(per_dest=tuple((row(b), s)
+                                           for b, s in layout.per_dest))
+            layout = part.build_reduce_layout(
+                side.m, side.maps.orig_to_padded, side.maps.padded_num,
+                other.maps.ids_per_dev, cfg.max_bucket_width,
+                cfg.bucket_growth)
+            side.exchange = "reduce"
+            return dict(buckets=row(layout.buckets), splits=layout.splits)
+        layout = part.build_gather_layout(
+            side.m, side.maps, other.maps.orig_to_padded,
+            cfg.max_bucket_width, cfg.bucket_growth)
+        buckets = row(layout.buckets)
+        out = dict(buckets=buckets, splits=layout.splits,
+                   bucket_orig=torch.cat([b.orig_ids for b in buckets]))
+        side.exchange = "gather"
+        if d > 1 and cfg.halo != "off":
+            hl = part.build_halo_layout(side.m, side.maps, other.maps)
+            if cfg.halo == "on" or hl.volume_ratio <= 0.5:
+                side.exchange, side.halo = "halo", hl
+
+                def rows(tables):
+                    return tuple(torch.as_tensor(t[self.rank], dtype=torch.long,
+                                                 device=self.device)
+                                 for t in tables)
+                out["halo"] = (rows(hl.send_rows), rows(hl.recv_pos))
+        return out
 
     def _prior(self, side: Side) -> dict:
         """The per-item prior of a dense8 or fused dense side, packed once
@@ -655,6 +708,9 @@ class BPMF:
         self._log(f"num_latent: {cfg.num_latent}")
         d = self.n_devices
         self._log(f"ndevices: {d} (mode: {self.mode})")
+        if self._mesh_in is not None and self._mesh_in.group is not None:
+            self._log(f"process group: {self._mesh_in.backend}, "
+                      f"{self._mesh_in.size} rank(s)")
         self._log(f"nsims: {cfg.nsims}")
         self._log(f"burnin: {cfg.burnin}")
         self._log(f"alpha: {cfg.alpha}")
@@ -700,16 +756,27 @@ class BPMF:
                           f"{d}x{lp}x{opn} x2 blocks "
                           f"({2 * d * lp * opn * nbytes / 1e6:.0f} MB {cfg.dtype}), "
                           f"route {side.route}{prior}")
+            elif side.exchange == "reduce_chunked":
+                n_b = sum(len(s) for _, s in aux.per_dest)
+                self._log(f"gram layout {side.name}: reduce-chunked, "
+                          f"{len(aux.per_dest)} destination shards, "
+                          f"{n_b} buckets (peak stat buffer "
+                          f"{side.maps.local_pad}x{cfg.num_latent}^2 per "
+                          f"device){prior}")
             else:
                 self._log(f"gram layout {side.name}: buckets "
                           + ", ".join(f"{d}x{b.nbr.shape[0]}x{b.nbr.shape[1]}"
                                       for b in aux.buckets)
                           + f"  (devices x rows x width){prior}")
-                if d > 1 and cfg.halo == "auto":
-                    # bpmf_tpu/sampler.py:433-438 can take the halo ring here;
-                    # it moves the values of the all_gather
-                    self._log(f"halo {side.name}: all_gather (the halo ring is "
-                              f"not ported yet, see {HALO})")
+                if side.halo is not None:
+                    hl = side.halo
+                    self._log(f"halo {side.name}: <= {hl.halo_rows} rows/pair "
+                              f"(per-round widths; volume "
+                              f"{hl.volume_ratio:.2f}x of all_gather)")
+                    # per-pair message-count matrix (assign.cpp:238-250 analog)
+                    self._log(f"halo {side.name} rows from -> to:")
+                    for row in hl.pair_counts:
+                        self._log("  " + " ".join(f"{int(c):7d}" for c in row))
 
     # -- Gibbs loop --------------------------------------------------------
 
@@ -722,13 +789,15 @@ class BPMF:
 
     def _sweep(self, side: Side, state: SideState, other_items, hp, it):
         """One half-sweep on the side's route (over the ranks of the mesh at
-        D > 1: the sharded dense8 sweep, or gather mode).  Noise rows are
-        keyed by original id: the rank's padded slots of a dense8 or dense
-        side, its concatenated bucket slots of a bucketed side; zeros under
+        D > 1: the sharded dense8 sweep, gather mode, or reduce mode on the
+        buckets).  Noise rows are keyed by original id: the rank's padded
+        slots of a dense8 or dense side and of a bucketed side in reduce
+        mode, its concatenated bucket slots of a bucketed side in gather
+        mode (``bpmf_tpu/parallel/spmd.py:712``, ``:1180``); zeros under
         ``ablate="nonoise"``."""
         cfg = self.cfg
         aux = self._aux[side.name]
-        bucketed = side.impl == "bucketed"
+        bucketed = side.exchange in ("gather", "halo")
         ids = aux.bucket_orig if bucketed else aux.local_orig
         if "nonoise" in self._ablates:
             noise = torch.zeros((ids.shape[0], cfg.num_latent), dtype=self.dtype,
@@ -736,15 +805,25 @@ class BPMF:
         else:
             noise = self.draws.noise(it, 0 if side is self.movies else 1, ids,
                                      side.num, cfg.num_latent, self.dtype)
-        if bucketed:
-            return gather_half_sweep(
-                state, aux.buckets, other_items, hp, noise, it, num=side.num,
-                mean_rating=self._mean_rating, alpha=cfg.alpha,
-                burnin=cfg.burnin, splits=aux.splits,
-                diagonal_only=cfg.diagonal_only,
+        if side.impl == "bucketed":
+            common = dict(
+                num=side.num, mean_rating=self._mean_rating, alpha=cfg.alpha,
+                burnin=cfg.burnin, diagonal_only=cfg.diagonal_only,
                 strict_reference=cfg.strict_reference, solver=self.solver,
                 prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda,
                 ablate=cfg.ablate, mesh=self.mesh)
+            if side.exchange == "reduce_chunked":
+                return reduce_half_sweep_chunked(
+                    state, aux.per_dest, other_items, hp, noise, it,
+                    local_valid=aux.local_valid, **common)
+            if side.exchange == "reduce":
+                return reduce_half_sweep(
+                    state, aux.buckets, other_items, hp, noise, it,
+                    padded_num=side.maps.padded_num,
+                    local_valid=aux.local_valid, splits=aux.splits, **common)
+            return gather_half_sweep(
+                state, aux.buckets, other_items, hp, noise, it,
+                splits=aux.splits, halo=aux.halo, **common)
         orientation = "rows" if side is self.users else "cols"
         if side.impl == "dense8" and self.mesh is not None:
             return dense8_half_sweep_sharded(

@@ -172,6 +172,22 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               of the same seed and both factor tables within MULTI_TABLES
               of one device's; its ms/iter, beside one device's, is
               gloo through the host, not a speed of the port
+  25. reduce   the buckets' exchanges and --dist on the one card: (a) a
+              one-rank NCCL group, on both sides of ml-1m synth K=32
+              (gram_impl bucketed), reduce_half_sweep and
+              reduce_half_sweep_chunked against gather_half_sweep on the
+              same inputs and the same noise row per original id, within
+              REDUCE_TOL, #8 in each, launches and collectives counted; (b)
+              two gloo ranks on the one GPU (after each of the four
+              exchanges once, the halo ring's ppermute among them): the
+              ml-1m K=32 bucketed chain in reduce, chunked reduce, halo and
+              gather mode (BUCKET_CHAINS), 2 chunks of 50 each, against one
+              device within MULTI_BAND and MULTI_TABLES, the halo's tables
+              equal to gather's, #8 twice a rank and iteration, gloo ms/iter
+              beside one device's; (c) python -m bpmf_tpu_torch with
+              --dist 127.0.0.1:<port>,1,0 (one process, one NCCL rank
+              through the TCP store), 20 iterations, the trajectory of the
+              same run without it
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -236,7 +252,18 @@ MULTI_BAND = 0.005               # phase 24 (b): 2 ranks against 1, other
                                  # routes (split against #1) and sum orders
 MULTI_TABLES = 1e-3              # phase 24 (b): the factor tables' largest
                                  # difference from one device's (3.7e-5 read
-                                 # on an H100, PERF.md section 6)
+                                 # on an H100, PERF.md section 6); phase 25 (b)
+REDUCE_TOL = 1e-4                # phase 25 (a): reduce and chunked reduce
+                                 # against gather on the same inputs, relative
+                                 # to the largest magnitude: f32 sums in
+                                 # another order (the scatter-add's atomics),
+                                 # as tests/test_spmd.py:204 holds them
+# Phase 25 (b)'s chains: two gloo ranks on the one GPU, the buckets in each
+# exchange, against one device
+BUCKET_CHAINS = {"reduce": {"comm_mode": "reduce", "reduce_chunked": "off"},
+                 "reduce_chunked": {"comm_mode": "reduce", "reduce_chunked": "on"},
+                 "halo": {"halo": "on"},
+                 "gather": {"halo": "off"}}
 # Phase 3's rows of the megakernel past one row a lane (#1 at K 33-41, on
 # the capacities 40 and 44) and of #2 at a runtime K: (operand, K)
 WIDE = (("inkernel", 33), ("inkernel", 40), ("inkernel", 41), ("tight", 24),
@@ -805,7 +832,8 @@ def multi_phase(train, test, counts, total, tag, devnull, device="cuda",
     want_n = (launches(gram_inkernel=2, solve_shared=3, blast=2)
               if dev.type == "cuda" else launches())
     assert n == want_n, n
-    assert collectives == {"all_gather": 6, "all_reduce": 6, "reduce_scatter": 1}, collectives
+    assert collectives == {"all_gather": 6, "all_reduce": 6, "reduce_scatter": 1,
+                           "ppermute": 0}, collectives
     for key, c in n.items():
         total[key] += c
     errs = {}
@@ -878,6 +906,268 @@ def multi_phase(train, test, counts, total, tag, devnull, device="cuda",
                   "codes_per_rank": ranks[0]["codes"],
                   "gloo_ms_per_iter": sum(chunk_s[1:]) / ((chunks - 1) * iters) * 1e3,
                   "chunk_s": chunk_s, **tag})
+    return lines, time.perf_counter() - t_phase
+
+
+def multi_bucket_chains(mesh, chunks, iters, seed, k, data_kw):
+    """Phase 25 (b): one rank of each of BUCKET_CHAINS on ml-1m synth
+    (``data_kw``) through ``BPMF`` on ``mesh``, the buckets on both sides.
+    First each of the four exchanges once on this rank's device (the
+    ppermute too: the halo ring's); a refusal ends the rank.  Per chain:
+    each side's exchange, its launch counts (set to 0 after setup, read
+    after the chunks), collectives, per-chunk seconds, last metrics and
+    both factor tables."""
+    import numpy as np
+    import torch
+
+    from bpmf_tpu_torch import Config, synth_movielens
+    from bpmf_tpu_torch.sampler import BPMF
+
+    refused = {}
+    x = torch.ones((2, 3), device=mesh.device) * (mesh.rank + 1)
+    for name, call in (("all_gather", lambda: mesh.all_gather(x)),
+                       ("all_reduce", lambda: mesh.all_reduce(x)),
+                       ("reduce_scatter", lambda: mesh.reduce_scatter(
+                           x.repeat(mesh.size, 1))),
+                       ("ppermute", lambda: mesh.ppermute(x, 1))):
+        try:
+            got = call()
+            if name == "ppermute":     # the peer's rows, not this rank's
+                assert float(got[0, 0]) == (mesh.rank - 1) % mesh.size + 1, got
+        except RuntimeError as e:      # the backend's refusal, quoted
+            refused[name] = f"{type(e).__name__}: {e}"[:1000]
+    if refused:
+        return {"rank": mesh.rank, "refused": refused}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train, test = synth_movielens(**data_kw)
+    counts = Counts()
+    out = {"rank": mesh.rank}
+    for name, kw in BUCKET_CHAINS.items():
+        sampler = BPMF(Config(num_latent=k, burnin=2, nsims=chunks * iters,
+                              seed=seed, gram_impl="bucketed", **kw),
+                       train, test, out=open(os.devnull, "w"), mesh=mesh)
+        sampler.setup()
+        counts.reset()
+        before = dict(mesh.collectives)
+        mets, chunk_s = [], []
+        for _ in range(chunks):
+            t0 = time.perf_counter()
+            mets.append(sampler.run_chunk(iters))   # ends in a host sync
+            chunk_s.append(time.perf_counter() - t0)
+        out[name] = {
+            "launches": counts.read(),
+            "collectives": {c: m - before[c] for c, m in mesh.collectives.items()},
+            "exchange": {s.name: s.exchange for s in (sampler.movies, sampler.users)},
+            "halo_volume_ratio": {s.name: s.halo.volume_ratio
+                                  for s in (sampler.movies, sampler.users)
+                                  if s.halo is not None},
+            "chunk_s": chunk_s, "rmse_avg": float(mets[-1].rmse_avg[-1]),
+            "rmse": float(mets[-1].rmse[-1]),
+            "finite": bool(all(np.isfinite(x).all() for m in mets for x in m)),
+            "tables": [sampler.items_host(sampler.users, sampler.state_u),
+                       sampler.items_host(sampler.movies, sampler.state_m)]}
+        del sampler
+    return out
+
+
+def reduce_phase(train, test, counts, total, tag, devnull, device="cuda", k=K,
+                 data_kw=None, chunks=2, iters=50):
+    """Phase 25: bucketed reduce, its chunked form, the halo ring and
+    ``--dist`` on the one card.  (a) a real NCCL group of one rank: on both
+    sides of ml-1m synth, reduce_half_sweep and reduce_half_sweep_chunked
+    against gather_half_sweep on the same inputs and noise rows
+    (REDUCE_TOL), #8 in each; (b) two gloo ranks on the one GPU: the chains
+    of BUCKET_CHAINS against one device (MULTI_BAND, MULTI_TABLES), the
+    halo's tables equal to the all_gather's; (c) the CLI with ``--dist
+    127.0.0.1:<port>,1,0`` (one process, one NCCL rank through the TCP
+    store) against the same run without it.  ``device``, ``k`` and
+    ``data_kw`` exist for a rehearsal on the CPU at a small size (which
+    skips (c)).  Returns the phase's lines and its seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bpmf_tpu_torch import Config, write_matrix
+    from bpmf_tpu_torch.parallel import spmd
+    from bpmf_tpu_torch.parallel.launch import run_ranks
+    from bpmf_tpu_torch.parallel.mesh import free_port, init_mesh
+    from bpmf_tpu_torch.sampler import BPMF
+
+    t_phase = time.perf_counter()
+    lines = []
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    # (a) one NCCL rank: the three bucketed sweeps on the same inputs
+    mesh = init_mesh(0, 1, f"tcp://127.0.0.1:{free_port()}", dev)
+    assert mesh.group is not None
+    g = torch.Generator(device=dev).manual_seed(25)
+    samplers = {}
+    for name, kw in (("gather", {}), ("reduce", {"comm_mode": "reduce",
+                                                   "reduce_chunked": "off"}),
+                     ("reduce_chunked", {"comm_mode": "reduce",
+                                         "reduce_chunked": "on"})):
+        s = BPMF(Config(num_latent=k, burnin=0, nsims=3, gram_impl="bucketed", **kw),
+                 train, test, out=devnull, device=dev)
+        s.setup()
+        assert s.movies.exchange == s.users.exchange == name
+        samplers[name] = s
+    sg = samplers["gather"]
+    sg.run_chunk(3)                          # a state of the chain itself
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    calls = {}
+    for side_name, state, other in (("movs", sg.state_m, sg.state_u.items),
+                                    ("users", sg.state_u, sg.state_m.items)):
+        side = sg.movies if side_name == "movs" else sg.users
+        # one noise row per item by original id: gather reads it per bucket
+        # slot, reduce per local slot
+        table = torch.randn((side.num + 1, k), generator=g, device=dev)
+        common = dict(num=side.num, mean_rating=sg._mean_rating, alpha=2.0,
+                      burnin=0, solver=sg.solver, mesh=mesh)
+        ga, ra, ca = (samplers[n]._aux[side_name]
+                      for n in ("gather", "reduce", "reduce_chunked"))
+        args = (state, other, state.hp)
+        calls[side_name] = {
+            "gather": lambda ga=ga, args=args, table=table, common=common:
+                spmd.gather_half_sweep(args[0], ga.buckets, *args[1:],
+                                       table[ga.bucket_orig], 5,
+                                       splits=ga.splits, **common),
+            "reduce": lambda ra=ra, args=args, table=table, common=common,
+                n=side.maps.padded_num:
+                spmd.reduce_half_sweep(args[0], ra.buckets, *args[1:],
+                                       table[ra.local_orig], 5, padded_num=n,
+                                       local_valid=ra.local_valid,
+                                       splits=ra.splits, **common),
+            "reduce_chunked": lambda ca=ca, args=args, table=table, common=common:
+                spmd.reduce_half_sweep_chunked(args[0], ca.per_dest, *args[1:],
+                                               table[ca.local_orig], 5,
+                                               local_valid=ca.local_valid,
+                                               **common)}
+    counts.reset()
+    before = dict(mesh.collectives)
+    got = {(side, name): fn() for side, fns in calls.items()
+           for name, fn in fns.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    n = counts.read()
+    collectives = {c: m - before[c] for c, m in mesh.collectives.items()}
+    want_n = launches(blast=6) if dev.type == "cuda" else launches()
+    assert n == want_n, n
+    assert collectives == {"all_gather": 2, "all_reduce": 8, "reduce_scatter": 2,
+                           "ppermute": 0}, collectives
+    for key, c in n.items():
+        total[key] += c
+    errs, sweep_ms = {}, {}
+    for side_name in calls:
+        valid = sg._aux[side_name].local_valid > 0
+        want = got[side_name, "gather"]
+        for name in ("reduce", "reduce_chunked"):
+            st = got[side_name, name]
+            errs[f"{side_name}_{name}"] = max(
+                rel(st.items[valid], want.items[valid]), rel(st.sum, want.sum),
+                rel(st.cov, want.cov), rel(st.norm, want.norm))
+            assert errs[f"{side_name}_{name}"] <= REDUCE_TOL, (side_name, name, errs)
+        if dev.type == "cuda":
+            sweep_ms[side_name] = {name: median_ms(fn, reps=10)
+                                   for name, fn in calls[side_name].items()}
+    dist.destroy_process_group()
+    lines.append({"phase": "reduce", "part": "a", "what": "one NCCL rank: the "
+                  "bucketed sweeps of reduce mode, plain and chunked, against "
+                  "gather mode on the same inputs", "dataset": "ml-1m synth",
+                  "k": k, "backend": mesh.backend, "launches": n,
+                  "collectives": collectives, "max_rel_err": errs,
+                  "tolerance": REDUCE_TOL, "sweep_ms": sweep_ms,
+                  "buckets": {sn: {name: len(samplers[name]._aux[sn].buckets)
+                                   if name != "reduce_chunked" else
+                                   sum(len(b) for b, _ in samplers[name]._aux[sn].per_dest)
+                                   for name in samplers} for sn in calls}, **tag})
+    del samplers, calls, got, sg
+
+    # (b) two gloo ranks on the one GPU, each exchange, against one device
+    one = BPMF(Config(num_latent=k, burnin=2, nsims=chunks * iters, seed=7,
+                      gram_impl="bucketed"), train, test, out=devnull, device=dev)
+    one_mets, one_s = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        one_mets.append(one.run_chunk(iters))
+        one_s.append(time.perf_counter() - t0)
+    one_avg = float(one_mets[-1].rmse_avg[-1])
+    one_tables = [one.items_host(one.users, one.state_u),
+                  one.items_host(one.movies, one.state_m)]
+    del one
+    ranks = run_ranks(multi_bucket_chains, 2, chunks, iters, 7, k, data_kw or {},
+                      device=dev, backend="gloo", timeout_s=600)
+    refused = {r["rank"]: r["refused"] for r in ranks if "refused" in r}
+    assert not refused, refused              # the ring needs its ppermute
+    want_exchange = {"reduce": "reduce", "reduce_chunked": "reduce_chunked",
+                     "halo": "halo", "gather": "gather"}
+    per_chain = {}
+    for name in BUCKET_CHAINS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        for r in (r0, r1):
+            assert r["finite"], (name, r)
+            assert r["exchange"] == dict.fromkeys(("movs", "users"),
+                                                  want_exchange[name]), r["exchange"]
+            if dev.type == "cuda":
+                assert r["launches"] == launches(blast=2 * chunks * iters), r["launches"]
+        assert r0["rmse_avg"] == r1["rmse_avg"]
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(r0["tables"], one_tables))
+        assert abs(r0["rmse_avg"] - one_avg) <= MULTI_BAND, (name, r0["rmse_avg"], one_avg)
+        assert diff <= MULTI_TABLES, (name, diff)
+        for key, c in r0["launches"].items():
+            total[key] += c
+        per_chain[name] = {
+            "rmse_avg": r0["rmse_avg"], "rmse": r0["rmse"],
+            "tables_max_abs_diff": diff, "collectives_per_rank": r0["collectives"],
+            "launches_per_rank": r0["launches"],
+            "halo_volume_ratio": r0["halo_volume_ratio"],
+            "gloo_ms_per_iter": sum(r0["chunk_s"][1:]) / ((chunks - 1) * iters) * 1e3,
+            "chunk_s": r0["chunk_s"]}
+    # the ring moves the all_gather's values to every row a bucket reads
+    halo_equal = all(np.array_equal(a, b) for a, b in
+                     zip(ranks[0]["halo"]["tables"], ranks[0]["gather"]["tables"]))
+    assert halo_equal
+    lines.append({"phase": "reduce", "part": "b",
+                  "what": "2 ranks on one GPU, gloo through the host (not a "
+                          "speed of the port)", "dataset": "ml-1m synth", "k": k,
+                  "iterations": chunks * iters, "chains": per_chain,
+                  "halo_tables_equal_gather": halo_equal,
+                  "one_device_rmse_avg": one_avg, "band": MULTI_BAND,
+                  "tables_bound": MULTI_TABLES,
+                  "one_device_ms_per_iter": sum(one_s[1:]) / ((chunks - 1) * iters) * 1e3,
+                  **tag})
+
+    # (c) the CLI with --dist: one process, one NCCL rank, the TCP store
+    if dev.type == "cuda":
+        with tempfile.TemporaryDirectory() as tmp:
+            tr, te = os.path.join(tmp, "train.sdm"), os.path.join(tmp, "test.sdm")
+            write_matrix(tr, train)
+            write_matrix(te, test)
+            runs = {}
+            for label, extra in (("plain", []),
+                                 ("dist", ["--dist", f"127.0.0.1:{free_port()},1,0"])):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "bpmf_tpu_torch", "-n", tr, "-p", te,
+                     "-i", "20", "-b", "5", "-d", str(k)] + extra,
+                    capture_output=True, text=True, cwd=ROOT, timeout=300,
+                    env=dict(os.environ, PYTHONPATH=ROOT))
+                assert proc.returncode == 0, proc.stderr[-3000:]
+                runs[label] = proc.stdout
+            assert "process group: nccl, 1 rank(s)" in runs["dist"]
+            assert "process group" not in runs["plain"]
+
+            def trajectory(text):
+                return [line.split("\titems/sec")[0] for line in text.splitlines()
+                        if "iteration" in line and "RMSE" in line]
+            traj = {label: trajectory(text) for label, text in runs.items()}
+            assert len(traj["plain"]) == 20 and traj["dist"] == traj["plain"]
+            lines.append({"phase": "reduce", "part": "c",
+                          "what": "--dist 127.0.0.1:<port>,1,0 against no --dist",
+                          "dataset": "ml-1m synth", "k": k, "iterations": 20,
+                          "trajectory_equal": True,
+                          "final": runs["dist"].split("Final Avg RMSE:")[1].split()[0],
+                          **tag})
     return lines, time.perf_counter() - t_phase
 
 
@@ -2337,6 +2627,13 @@ def main():
     lines, multi_s = multi_phase(train, test, counts, total, tag, devnull)
     for line in lines:
         emit({**line, "phase_s": multi_s})
+
+    # 25. bucketed reduce, its chunked form, the halo ring and --dist: (a)
+    # one NCCL rank, each reduce sweep against gather mode; (b) two gloo
+    # ranks on the one GPU, a chain of each; (c) the CLI with --dist
+    lines, reduce_s = reduce_phase(train, test, counts, total, tag, devnull)
+    for line in lines:
+        emit({**line, "phase_s": reduce_s})
 
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"

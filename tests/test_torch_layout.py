@@ -333,6 +333,62 @@ def test_multi_device_layouts_match(n_dev, width):
         assert num == maps[1].num and other_num == other[1].num
 
 
+def _stacked_equal(got, want, n_dev):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.nbr.shape[0] == n_dev and g.split == w.split
+        for f in BUCKET_FIELDS:
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f), f)
+
+
+@pytest.mark.parametrize("layout", ["halo", "reduce", "reduce_chunked"])
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_exchange_layouts_match(n_dev, layout):
+    """At n_dev devices, both sides, on a sparse matrix (the halo's rows
+    differ by pair) at bucket width 8 (split buckets): build_halo_layout's
+    per-round tables, pair counts, widest round and volume ratio;
+    build_reduce_layout's and build_reduce_layout_chunked's stacked buckets
+    (of every destination), the JAX package's.  At 4 devices the movies
+    are 3: one shard of each side's other side is empty, and so is one
+    destination of the chunked layout."""
+    train, _ = make_ratings(n_users=60, n_movies=3 if n_dev == 4 else 45,
+                            density=0.3 if n_dev == 4 else 0.4, seed=n_dev)
+    sides = ((train, train.T.tocsc()), (train.T.tocsc(), train))
+    for side_m, other_m in sides:
+        deg, odeg = np.diff(side_m.indptr), np.diff(other_m.indptr)
+        maps = [_multi_maps(m, deg, n_dev, None) for m in (jax_part, port_part)]
+        other = [_multi_maps(m, odeg, n_dev, None) for m in (jax_part, port_part)]
+        if layout == "halo":
+            want = jax_part.build_halo_layout(side_m, maps[0], other[0])
+            got = port_part.build_halo_layout(side_m, maps[1], other[1])
+            assert len(got.send_rows) == n_dev - 1
+            for g, w in zip(got.send_rows + got.recv_pos, want.send_rows + want.recv_pos):
+                np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(got.pair_counts, want.pair_counts)
+            assert (got.halo_rows, got.volume_ratio) == (want.halo_rows, want.volume_ratio)
+        elif layout == "reduce":
+            want = jax_part.build_reduce_layout(
+                side_m, maps[0].orig_to_padded, maps[0].padded_num,
+                other[0].ids_per_dev, 8, 2)
+            got = port_part.build_reduce_layout(
+                side_m, maps[1].orig_to_padded, maps[1].padded_num,
+                other[1].ids_per_dev, 8, 2)
+            assert got.splits == want.splits
+            _stacked_equal(got.buckets, want.buckets, n_dev)
+        else:
+            want = jax_part.build_reduce_layout_chunked(
+                side_m, maps[0], other[0].ids_per_dev, 8, 2)
+            got = port_part.build_reduce_layout_chunked(
+                side_m, maps[1], other[1].ids_per_dev, 8, 2)
+            assert len(got.per_dest) == n_dev
+            for (gb, gs), (wb, ws) in zip(got.per_dest, want.per_dest):
+                assert gs == ws
+                _stacked_equal(gb, wb, n_dev)
+            if side_m.shape[1] < n_dev:
+                # 3 movies over 4 devices: one destination holds none
+                assert got.per_dest[-1] == ([], ())
+
+
 @pytest.mark.parametrize("n_dev", [3, 4])
 def test_stack_buckets_copy_matches_at_d(n_dev):
     """stack_buckets on per-device bucket lists of different widths and

@@ -205,6 +205,6 @@ def test_gather_matches_reduce(port, d):
     g, r = port[d]["dense8_gather"], port[d]["dense8_reduce"]
     _agree(r, g, f"reduce against gather at {d} ranks")
     want = {"all_gather": 3 * N_ITERS + 2, "reduce_scatter": N_ITERS,
-            "all_reduce": 3 * N_ITERS}
+            "all_reduce": 3 * N_ITERS, "ppermute": 0}
     assert g["collectives"] == want
     assert r["collectives"] == want

@@ -1,8 +1,8 @@
 """The pieces of the port's multi-device run on the CPU: each sharded function
 against its one-device function at 2 gloo ranks, the routes at D > 1
 against the JAX sampler's, what each rank holds, the rank count, and the
-command line (``--devices 2 --device cpu`` against one rank, and the
-refusals that stay)."""
+command line (``--devices 2 --device cpu`` against one rank, with each
+multi-device flag)."""
 
 import os
 import subprocess
@@ -22,7 +22,7 @@ from bpmf_tpu_torch.parallel.launch import run_ranks
 from bpmf_tpu_torch.parallel.mesh import Mesh, free_port, resolve_n_devices
 from bpmf_tpu_torch.sampler import SHARDED_D8_ABLATIONS, BPMF
 from tests.conftest import make_ratings
-from tests.torch_ranks import rank_device, sharded_parts, sleeper
+from tests.torch_ranks import chains, rank_device, sharded_parts, sleeper
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,14 +37,18 @@ def parts():
 
 @pytest.mark.parametrize("name", [
     "dense8_rows_inkernel", "dense8_rows_hoisted", "dense8_cols_inkernel",
-    "dense8_cols_hoisted", "predict", "stats"])
+    "dense8_cols_hoisted", "predict", "stats", "reduce", "reduce_chunked",
+    "halo_sweep", "halo"])
 def test_sharded_function_matches_one_device(parts, name):
     """At 2 ranks, on the same inputs: the sharded dense8 half-sweep (the
     users' sweep gathers the movies, the movies' sweep reduce-scatters the
     partial Gram and rhs), both Gram operands; the entry-sharded evaluation
     (rmse, rmse_avg and each entry's Welford state); the all_reduce of the
-    stats.  Each rank's items, aggregates and the global stats against the
-    one-device function, within 2e-6 of their magnitude."""
+    stats; the bucketed sweeps of reduce mode, plain and chunked, and of
+    gather mode over the halo ring, against the one-device gather sweep
+    (float64), and the ring's rows against the all_gather's (exact).  Each
+    rank's items, aggregates and the global stats against the one-device
+    function, within 2e-6 of their magnitude."""
     for rank, errs in enumerate(parts):
         assert errs[name] <= PARTS_TOL, (rank, name, errs[name])
 
@@ -130,17 +134,28 @@ def test_sharded_ablation_set_matches_jax(ablate):
             _planned(Config(**kw), train, test, 2)
 
 
-def test_reduce_mode_refuses_buckets():
-    """--mode reduce sends a side that is not dense8 to the buckets in the
-    JAX package; the port names the entry of bucketed reduce instead of
-    running it."""
+def test_reduce_mode_takes_buckets():
+    """--mode reduce sends a side that is not dense8 to the buckets, in both
+    packages; the port runs them in reduce mode at 2 ranks, each rank
+    holding the reduce layout (items by padded global id, neighbours in its
+    own shard of the frozen side), on the one-rank trajectory."""
     train, test = make_ratings(n_users=70, n_movies=45, density=0.3, seed=11)
-    kw = dict(num_latent=6, nsims=1, n_devices=2, comm_mode="reduce")
+    kw = dict(num_latent=6, nsims=3, burnin=1, n_devices=2, comm_mode="reduce")
     ref = _jax_setup(JaxConfig(**kw), train, test)
     assert ref.movies.impl == ref.users.impl == "bucketed"
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 #6 .*rest 2: bucketed reduce"):
-        _planned(Config(**kw), train, test, 2)
+    port = _planned(Config(**kw), train, test, 2)
+    for side, other in ((port.movies, port.users), (port.users, port.movies)):
+        assert side.impl == "bucketed" and side.exchange == "reduce"
+        aux = port._aux[side.name]
+        assert max(int(b.item_ids.max()) for b in aux.buckets) < side.maps.padded_num
+        assert max(int(b.nbr.max()) for b in aux.buckets) < other.maps.local_pad
+    job = (train, test, dict(kw, n_devices=0), 3)
+    one = chains(None, {"one": job})["one"]
+    two = run_ranks(chains, 2, {"two": job}, device="cpu", threads=1,
+                    timeout_s=600)[0]["two"]
+    assert two["mode"] == "reduce" and two["n_devices"] == 2
+    assert np.isfinite(two["metrics"]).all()
+    np.testing.assert_allclose(two["metrics"], one["metrics"], rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("route", ["dense8", "dense8_prop", "fused", "dense",
@@ -273,21 +288,40 @@ def test_cli_two_ranks_match_one(tmp_path):
             final, abs=2e-5)
 
 
-@pytest.mark.parametrize("flags,entry", [
-    (["--halo", "on"], "rest 1: the halo ring"),
-    (["--mode", "reduce", "--gram-impl", "bucketed"],
-     "rest 2: bucketed reduce and its chunked form"),
-    (["--reduce-chunked", "off"], "rest 2: bucketed reduce and its chunked form"),
-    (["--dist", "h:1,2,0"], "rest 3: --dist and multihost"),
-])
-def test_cli_refusals_name_the_rest(flags, entry, capsys):
-    """What stays of multi-device after this slice is refused, each part
-    naming its entry of ROADMAP.md Queue 1 #6."""
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["-n", "train.mtx", "-p", "test.mtx", "--device", "cpu",
-                  "--devices", "2"] + flags)
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue 1 #6 (multi-device, {entry})" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [
+    ["--halo", "on", "--gram-impl", "bucketed"],
+    ["--mode", "reduce", "--gram-impl", "bucketed"],
+    ["--reduce-chunked", "on", "--mode", "reduce", "--gram-impl", "bucketed"],
+    ["--dist", "127.0.0.1:{port},1,0"],
+], ids=("halo", "reduce", "reduce_chunked", "dist"))
+def test_cli_runs_the_multi_device_flags(flags, tmp_path, monkeypatch):
+    """What multi-device used to refuse runs at --devices 2 --device cpu:
+    the halo ring, bucketed reduce, its chunked form, and --dist (one
+    process holding both ranks, meeting at its TCP store).  The banner
+    names the layout each took, and the Final Avg RMSE is the one-rank
+    run's within 2e-5."""
+    train, test = _d8_data()
+    write_matrix(str(tmp_path / "train.mtx"), train)
+    write_matrix(str(tmp_path / "test.mtx"), test)
+    monkeypatch.chdir(tmp_path)
+    args = ["-r", "-i", "4", "-b", "1", "-d", "8", "--device", "cpu",
+            "-n", "train.mtx", "-p", "test.mtx"]
+
+    def final(extra):
+        assert cli.main(args + extra) == 0
+        text = open(tmp_path / "bpmf_0.out").read()
+        return text, float(text.split("Final Avg RMSE:")[1].split()[0])
+
+    _, want = final(["--devices", "1"])
+    text, got = final(["--devices", "2"] + [f.format(port=free_port()) for f in flags])
+    assert "ndevices: 2" in text and np.isfinite(got)
+    assert got == pytest.approx(want, abs=2e-5)
+    if "--halo" in flags:
+        assert "halo movs: <=" in text and "halo users rows from -> to:" in text
+    if "--reduce-chunked" in flags:
+        assert "reduce-chunked, 2 destination shards" in text
+    elif "reduce" in flags:
+        assert "(mode: reduce)" in text and "gram layout movs: buckets 2x" in text
 
 
 def test_cli_refuses_more_gpus_than_there_are(capsys):

@@ -134,17 +134,27 @@ def test_module_entry_point(tmp_path):
     assert "0: Sampling iteration 8:" in proc.stdout
 
 
-@pytest.mark.parametrize("flags,entry", [
-    (["--mode", "reduce", "--gram-impl", "bucketed"], "#6"),
-    (["--devices", "2", "--halo", "on"], "#6"),
-    (["--halo", "on"], "#6"), (["--dist", "h:1,2,0"], "#6"),
-    (["--reduce-chunked", "on"], "#6"),
-])
-def test_cli_refuses_unported_flags(flags, entry, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["-n", "train.mtx", "-p", "test.mtx", "--device", "cpu"] + flags)
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue 1 {entry}" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [
+    ["--mode", "reduce", "--gram-impl", "bucketed"],
+    ["--devices", "2", "--halo", "on"],
+    ["--halo", "on"], ["--dist", "127.0.0.1:{port},1,0"],
+    ["--reduce-chunked", "on"],
+], ids=lambda f: "_".join(f).replace("127.0.0.1:{port},1,0", "one_process"))
+def test_cli_runs_multi_device_flags(flags, tmp_path, monkeypatch):
+    """The multi-device flags that were refused until they were ported run
+    on the tiny data with --device cpu: bucketed reduce, the halo ring (at
+    2 gloo ranks; a no-op on one device, as in the JAX package), --dist
+    (one process of one rank, through the TCP store) and the chunked
+    reduce (a no-op in gather mode).  Each ends with the Final Avg RMSE of
+    the plain one-device run."""
+    from bpmf_tpu_torch.parallel.mesh import free_port
+
+    _tiny_files(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    want = _final_rmse(_run_cli(tmp_path, []))
+    out = _run_cli(tmp_path, [f.format(port=free_port()) for f in flags])
+    assert np.isfinite(want)
+    assert _final_rmse(out) == pytest.approx(want, abs=1e-6)
 
 
 def _run_cli(tmp_path, flags, iters=3):

@@ -189,6 +189,136 @@ def sharded_parts(mesh, seed: int = 0) -> dict:
     out["stats"] = max(rel(s, total[:k]),
                        rel(prod, total[k:k + k * k].reshape(k, k)),
                        rel(norm, total[-1]))
+    out.update(bucket_parts(mesh))
+    return out
+
+
+def _max_abs(x: torch.Tensor) -> float:
+    """The largest magnitude in ``x``; 0 when it is empty."""
+    return float(x.abs().max()) if x.numel() else 0.0
+
+
+def halo_data(d: int):
+    """The halo test's matrix (tests/test_spmd.py:337): [41 other, 26 this]
+    ratings, each side's maps over d devices, and the halo layout of the
+    sweep updating this side."""
+    import scipy.sparse as sps
+
+    from bpmf_tpu_torch.parallel import partition as part
+
+    m = sps.random(41, 26, density=0.12, random_state=3, format="csc")
+    m.data = 1.0 + 4.0 * m.data
+    maps = part.make_maps(part.assign_items(np.diff(m.indptr), d), 26)
+    omaps = part.make_maps(part.assign_items(np.diff(m.tocsr().indptr), d), 41)
+    return m, maps, omaps, part.build_halo_layout(m, maps, omaps)
+
+
+def halo_check(mesh) -> dict:
+    """:func:`~bpmf_tpu_torch.parallel.spmd.halo_gather` against the
+    all_gather of the same table on this rank: the largest difference on
+    the rows its buckets reference and on its own shard (both must be 0),
+    the rows it received, and the collectives it took."""
+    from bpmf_tpu_torch.parallel import spmd
+
+    d, r = mesh.size, mesh.rank
+    m, maps, omaps, hl = halo_data(d)
+    lp = omaps.local_pad
+    table = torch.randn((d * lp, 4), generator=torch.Generator().manual_seed(5))
+    before = dict(mesh.collectives)
+    got = spmd.halo_gather(mesh, table[r * lp:(r + 1) * lp],
+                           [torch.as_tensor(x[r], dtype=torch.long) for x in hl.send_rows],
+                           [torch.as_tensor(x[r], dtype=torch.long) for x in hl.recv_pos])
+    needed = np.unique(omaps.orig_to_padded[
+        np.unique(m[:, maps.ids_per_dev[r]].tocoo().row)])
+    own = slice(r * lp, (r + 1) * lp)
+    return {"needed": _max_abs(got[needed] - table[needed]),
+            "own": _max_abs(got[own] - table[own]),
+            "shape": tuple(got.shape), "received": int((got.abs().sum(1) > 0).sum()),
+            "collectives": {c: v - before[c] for c, v in mesh.collectives.items()}}
+
+
+def bucket_parts(mesh, seed: int = 5) -> dict:
+    """The bucketed sweeps of reduce mode, plain and chunked, and the halo
+    ring at ``mesh.size`` ranks against the one-device gather sweep of the
+    same side on the same inputs (float64, the xla solver, noise by
+    original id): the largest relative differences of this rank's items
+    and aggregates and of the global stats; and ``halo_check``'s."""
+    from bpmf_tpu_torch.models.bpmf import SideState
+    from bpmf_tpu_torch.ops.mvnormal import HyperParams
+    from bpmf_tpu_torch.parallel import partition as part
+    from bpmf_tpu_torch.parallel import spmd
+    from bpmf_tpu_torch.sampler import rank_buckets
+
+    d, r = mesh.size, mesh.rank
+    k, dt = 4, torch.float64
+    m, maps, omaps, _ = halo_data(d)
+    maps1 = part.make_maps(part.assign_items(np.diff(m.indptr), 1), 26)
+    omaps1 = part.make_maps(part.assign_items(np.diff(m.tocsr().indptr), 1), 41)
+    g = torch.Generator().manual_seed(seed)
+    other = torch.randn((41, k), generator=g, dtype=dt)
+    table = torch.randn((27, k), generator=g, dtype=dt)    # noise by orig id
+    w = torch.randn((k, k), generator=g, dtype=dt)
+    lam = w @ w.T / k + torch.eye(k, dtype=dt)
+    hp = HyperParams(mu=0.1 * torch.randn(k, generator=g, dtype=dt),
+                     lambda_f=lam, lambda_l=torch.linalg.cholesky(lam))
+
+    def padded(mp, x):
+        out = x.new_zeros((mp.padded_num, k))
+        out[torch.as_tensor(mp.orig_to_padded)] = x
+        return out
+
+    def state(n):
+        return SideState(items=torch.zeros((n, k), dtype=dt), hp=hp,
+                         sum=torch.zeros(k, dtype=dt), cov=torch.zeros((k, k), dtype=dt),
+                         norm=torch.zeros((), dtype=dt),
+                         aggr_mu=torch.zeros((n, k), dtype=dt),
+                         aggr_prod=torch.zeros((n, k * (k + 1) // 2), dtype=dt))
+
+    kw = dict(num=26, mean_rating=3.0, alpha=2.0, burnin=0, solver="xla")
+    gl = part.build_gather_layout(m, maps1, omaps1.orig_to_padded)
+    b1 = rank_buckets(gl.buckets, 0, dt, "cpu")
+    want = spmd.gather_half_sweep(
+        state(maps1.local_pad), b1, padded(omaps1, other), hp,
+        table[torch.cat([b.orig_ids for b in b1])], 3, splits=gl.splits, **kw)
+    olp, lp = omaps.local_pad, maps.local_pad
+    shard = padded(omaps, other)[r * olp:(r + 1) * olp]
+    valid = torch.as_tensor(maps.local_valid[r], dtype=dt)
+    noise = table[torch.as_tensor(maps.local_orig[r], dtype=torch.long)]
+    rl = part.build_reduce_layout(m, maps.orig_to_padded, maps.padded_num,
+                                  omaps.ids_per_dev)
+    rc = part.build_reduce_layout_chunked(m, maps, omaps.ids_per_dev)
+    got = {
+        "reduce": spmd.reduce_half_sweep(
+            state(lp), rank_buckets(rl.buckets, r, dt, "cpu"), shard, hp, noise,
+            3, padded_num=maps.padded_num, local_valid=valid, splits=rl.splits,
+            mesh=mesh, **kw),
+        "reduce_chunked": spmd.reduce_half_sweep_chunked(
+            state(lp), [(rank_buckets(b, r, dt, "cpu"), s) for b, s in rc.per_dest],
+            shard, hp, noise, 3, local_valid=valid, mesh=mesh, **kw)}
+    gd = part.build_gather_layout(m, maps, omaps.orig_to_padded)
+    hl = part.build_halo_layout(m, maps, omaps)
+    bd = rank_buckets(gd.buckets, r, dt, "cpu")
+    got["halo_sweep"] = spmd.gather_half_sweep(
+        state(lp + 1), bd, shard, hp, table[torch.cat([b.orig_ids for b in bd])],
+        3, splits=gd.splits, mesh=mesh,
+        halo=tuple([torch.as_tensor(x[r], dtype=torch.long) for x in t]
+                   for t in (hl.send_rows, hl.recv_pos)), **kw)
+    ids = maps.ids_per_dev[r]
+    at = torch.as_tensor(maps1.orig_to_padded[ids], dtype=torch.long)
+
+    def rel(a, b) -> float:
+        return _max_abs(a - b) / max(1.0, _max_abs(b))
+
+    out = {}
+    for name, st in got.items():
+        n = len(ids)
+        out[name] = max(rel(st.items[:n], want.items[at]),
+                        rel(st.aggr_mu[:n], want.aggr_mu[at]),
+                        rel(st.aggr_prod[:n], want.aggr_prod[at]),
+                        rel(st.sum, want.sum), rel(st.cov, want.cov),
+                        rel(st.norm, want.norm))
+    check = halo_check(mesh)
+    out["halo"] = max(check["needed"], check["own"])
     return out
 
 
@@ -202,3 +332,39 @@ def sleeper(mesh, seconds):
     import time
 
     time.sleep(seconds)
+
+
+def collective_shapes(mesh, jobs: dict) -> dict:
+    """One iteration of each job, {name: (train, test, cfg_kw)}, on this
+    rank, watched by a ``TorchFunctionMode``: the shapes of every tensor it
+    makes with as many rows as a side's padded_num and at least K*K
+    columns (``big``), and the collectives it calls with their shapes
+    (``Mesh.log``)."""
+    from torch.overrides import TorchFunctionMode
+
+    out = {}
+    for name, (train, test, cfg_kw) in jobs.items():
+        s = sampler(mesh, train, test, cfg_kw)
+        k = s.cfg.num_latent
+        pn = {side.name: side.maps.padded_num for side in (s.movies, s.users)}
+        big = []
+
+        class Watch(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                res = func(*args, **(kwargs or {}))
+                for t in (res if isinstance(res, (tuple, list)) else (res,)):
+                    if (isinstance(t, torch.Tensor) and t.dim() >= 2
+                            and t.shape[0] in pn.values()
+                            and t[0].numel() >= k * k):
+                        big.append(tuple(t.shape))
+                return res
+
+        mesh.log = []
+        with Watch():
+            s.run_chunk(1)
+        out[name] = {"big": sorted(set(big)), "log": mesh.log}
+        mesh.log = None
+        out["padded_num"] = pn
+        out["local_pad"] = {side.name: side.maps.local_pad
+                            for side in (s.movies, s.users)}
+    return out
