@@ -14,7 +14,8 @@ checkpoints and the perf-debug surfaces; and multi-device over
 processes ``--dist``): the sharded dense8 sweep in gather and reduce mode,
 gather mode on the dense routes, the buckets in gather mode (all_gather or
 the halo ring) and in reduce mode (plain or chunked), and the sharded
-evaluation (ROADMAP.md lists what is still to port: bf16).
+evaluation; every route also with bf16 matmul inputs
+(``Config(matmul_dtype="bfloat16")``).
 
     from bpmf_tpu_torch import BPMF, Config, synth_movielens
     train, test = synth_movielens()          # ml-1m-sized synthetic ratings

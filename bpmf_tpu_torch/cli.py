@@ -30,8 +30,9 @@ GPUs, one rank a process on the CPU), N / NPROC of them in each process,
 which holds global ranks ``PID * N / NPROC`` on; each takes its GPU by
 its place on its host.  Only global rank 0 prints.
 
-A flag whose feature is not ported yet stops the run with an error naming
-its ROADMAP.md entry.
+Every flag of the JAX CLI is ported but ``--platform``, which selects a
+JAX platform and stops the run with an error (``--device`` selects the
+port's).
 """
 
 from __future__ import annotations

@@ -194,8 +194,13 @@ def predict(ev: EvalData, est: EvalState, user_items: torch.Tensor,
     prediction and resets M2 (c++/sample.cpp:84-86).  With a ``mesh``
     (``parallel.spmd.predict_sharded``) ``ev`` and ``est`` are this rank's
     entries, the error sums are summed over ranks and divided by
-    ``nnz_true``, the entry count of the whole test set."""
-    pred = (user_items[ev.t_user] * movie_items[ev.t_item]).sum(-1) + mean_rating
+    ``nnz_true``, the entry count of the whole test set.  Tables in bf16
+    (the sampler's final pass under bf16 matmul inputs) give each entry's
+    products rounded to bf16, summed in the ratings' dtype, as the JAX
+    package's ``gather_dtype`` does."""
+    dtype = ev.t_val.dtype
+    pred = (user_items[ev.t_user] * movie_items[ev.t_item]).to(dtype).sum(-1) \
+        + mean_rating
     return _welford(ev, est, pred, it, burnin, mesh, nnz_true)
 
 

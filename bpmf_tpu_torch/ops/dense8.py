@@ -24,7 +24,13 @@ Device part, two routes:
 
 Each has a plain PyTorch version (``*_ref``).  A wrapper runs the plain
 version only for tensors on the CPU; a CUDA tensor launches the kernel or
-raises.
+raises.  The frozen items ``v_t`` and the hoisted operand ``p_t`` are
+float32, or bf16 (``Config.matmul_dtype="bfloat16"``), which takes the
+bf16 instances of each kernel, in libraries of their own
+(``csrc/*_bf16.cu``), and rounds where the JAX package's kernels round:
+#1/#3 each product of two entries of v, #2/#4 the fold's rhs weights
+cs*v and cb*v (cs and cb rounded first); every sum is float32.  A bf16
+tensor never reaches a float32 instance.
 """
 
 from __future__ import annotations
@@ -85,14 +91,43 @@ def gram_row_floats(k: int) -> int:
     wrapper pads v's rows with zeros to it."""
     return next((c for c in GRAM_ROW_CAPACITIES if c >= k), -(-k // 4) * 4)
 
-# CUDA launches of the Gram kernels (#3 in-kernel products, #4 hoisted
-# operand), and of the megakernel with a hoisted operand (#2) by its
-# layout, counted where they launch; plain-version calls are not counted.
-# The in-kernel megakernel (#1) counts on dense8_sweep_solve.launches.
-# The megakernel's launches also count by instance (sweep_instance_key).
-gram_launches = {"inkernel": 0, "hoisted": 0}
-sweep_hoisted_launches = {"tight": 0, "aligned": 0}
+# the operand types of the kernels, and the suffix of their counters' keys
+OPERAND_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+# CUDA launches, counted where they launch (plain-version calls are not):
+# the megakernel by its operand (#1 'inkernel', #2 'tight' or 'aligned'),
+# the Gram kernels (#3 'inkernel', #4 'hoisted'), and the megakernel by
+# instance (sweep_instance_key).  A bf16 instance counts under the float32
+# key with OPERAND_SUFFIX's "_bf16".
+sweep_launches = {o + s: 0 for s in OPERAND_SUFFIX.values()
+                  for o in ("inkernel", "tight", "aligned")}
+gram_launches = {o + s: 0 for s in OPERAND_SUFFIX.values()
+                 for o in ("inkernel", "hoisted")}
 sweep_instance_launches: dict = {}
+
+
+def _operand_suffix(*tensors) -> str:
+    """The counter-key suffix of the kernel instance for operands of one
+    type (float32 or bf16); raises on mixed or other types."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) != 1 or not dtypes <= set(OPERAND_SUFFIX):
+        raise ValueError("the CUDA kernels take float32 or bf16 operands of one "
+                         f"type, got {sorted(map(str, dtypes))}")
+    return OPERAND_SUFFIX[dtypes.pop()]
+
+
+def _compute_dtype(v_t: torch.Tensor) -> torch.dtype:
+    """The dtype the sums and the solve run in: float32 for bf16 operands,
+    else the operands' own."""
+    return torch.float32 if v_t.dtype == torch.bfloat16 else v_t.dtype
+
+
+def fold_weights(v_t: torch.Tensor, cs: float, cb: float):
+    """(bf16(cs v), bf16(cb v)) as float32, cs and cb rounded to bf16
+    first: the rhs weights of the JAX package's hoisted kernels (#2, #4)
+    under its default fold (``v_t * v_t.dtype.type(cs)``), for bf16 v."""
+    v = v_t.float()
+    bf = torch.bfloat16
+    return tuple((v * float(torch.tensor(c).to(bf))).to(bf).float() for c in (cs, cb))
 
 
 class Quantization(NamedTuple):
@@ -347,12 +382,13 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
     if max_degree is not None and not 0 <= int(max_degree) <= frozen:
         raise ValueError(f"max_degree={max_degree}: an item has at most {frozen} "
                          "ratings on this side")
+    if p_t is not None and p_t.dtype != v_t.dtype:
+        raise ValueError(f"p_t is {p_t.dtype}, v_t {v_t.dtype}")
     if codes.device.type == "cpu":
         return dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation)
     if codes.device.type != "cuda":
         raise ValueError(f"dense8_gram_rhs: no kernel for device {codes.device}")
-    if v_t.dtype != torch.float32 or (p_t is not None and p_t.dtype != torch.float32):
-        raise ValueError(f"the CUDA kernel is float32-only, got {v_t.dtype}")
+    suffix = _operand_suffix(v_t, p_t)
     if not tri_fused_supported(k):
         raise ValueError(f"K={k} is beyond the dense8 gate (tri_fused_supported)")
     if not codes.is_contiguous():
@@ -378,16 +414,16 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
     gram = torch.empty((items, t_out), dtype=torch.float32, device=dev)
     rhs = torch.empty((items, k), dtype=torch.float32, device=dev)
     r, c = codes.shape
-    err = _gram_kernel()(codes.data_ptr(), codes.element_size(), r, c,
-                         int(orientation == "rows"), k, v.data_ptr(), kv,
-                         None if p is None else p.data_ptr(), t_out, cs, cb,
-                         plan.segments, plan.tiles_per_segment,
-                         None if partial is None else partial.data_ptr(),
-                         None if arrivals is None else arrivals.data_ptr(),
-                         gram.data_ptr(), rhs.data_ptr(), stream)
+    err = _gram_kernel(bool(suffix))(
+        codes.data_ptr(), codes.element_size(), r, c, int(orientation == "rows"),
+        k, v.data_ptr(), kv, None if p is None else p.data_ptr(), t_out, cs, cb,
+        plan.segments, plan.tiles_per_segment,
+        None if partial is None else partial.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
+        gram.data_ptr(), rhs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dense8_gram_rhs kernel launch failed: cudaError {err}")
-    gram_launches["hoisted" if p is not None else "inkernel"] += 1
+    gram_launches[("hoisted" if p is not None else "inkernel") + suffix] += 1
     return gram.t(), rhs.t()
 
 
@@ -410,10 +446,13 @@ def _hoisted_rows(p_t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _gram_kernel():
+def _gram_kernel(bf16: bool = False):
+    """The Gram kernels' C entry point for float32 or bf16 operands (built
+    on first use, one library each)."""
     from bpmf_tpu_torch.ops._build import load
 
-    fn = load("dense8_gram_rhs").bpmf_dense8_gram_rhs
+    name = "dense8_gram_rhs" + ("_bf16" if bf16 else "")
+    fn = getattr(load(name), "bpmf_" + name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = ctypes.c_int
     fn.argtypes = [p, i, i, i, i, i, p, i, p, i, f, f, i, i, p, p, p, p, p]
@@ -431,12 +470,13 @@ def dense8_gram_rhs_rows(codes: torch.Tensor, p_t: Optional[torch.Tensor],
     [T, C] (:func:`packed_tri_t`) is summed as it is.
 
     The JAX package's ``BPMF_D8_FOLD`` (the cb-term riding the Gram as K
-    extra rows, which saves the TPU an MXU pass) has no counterpart: it
-    changes only rounding, and the kernel forms cs*code + cb per rating on
-    both routes.  CPU tensors take :func:`dense8_gram_rhs_ref`; CUDA
-    tensors the kernel (float32, K within the dense8 gate, codes on a
-    16-byte boundary).  Outputs on the card are the transposed views of
-    item-major tensors.
+    extra rows, which saves the TPU an MXU pass) has no counterpart at
+    float32: it changes only rounding, and the kernel forms cs*code + cb
+    per rating on both routes; on bf16 operands #4 rounds the rhs weights
+    as its default does (:func:`fold_weights`).  CPU tensors take
+    :func:`dense8_gram_rhs_ref`; CUDA tensors the kernel (float32 or bf16 ``v_t`` and ``p_t`` of one type, K
+    within the dense8 gate, codes on a 16-byte boundary).  Outputs are
+    float32; on the card the transposed views of item-major tensors.
 
     Both kernels split the frozen axis into segments, from ``max_degree``
     (the most ratings any item of this side has, at most the frozen count;
@@ -463,26 +503,37 @@ def dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation):
     :func:`dense8_gram_rhs_cols`: gram_t = p @ ind and rhs_t =
     v_t @ (cs*code + cb*ind) as dense matmuls over the whole code array,
     with p built from ``v_t`` in the tight layout (padding rows zero) when
-    ``p_t`` is None."""
-    dtype = v_t.dtype
+    ``p_t`` is None.  bf16 operands round as the JAX package's kernels do,
+    and every product and sum is float32: each built product to bf16
+    (#3), and given a ``p_t`` (#4) the rhs as the fold's
+    (:func:`fold_weights`)."""
+    dtype = _compute_dtype(v_t)
+    bf16 = v_t.dtype == torch.bfloat16
     k = v_t.shape[0]
     x = codes if orientation == "rows" else codes.t()    # [items, N]
     ind = (x != 0).to(dtype)
     cv = x.to(dtype)
+    v = v_t.to(dtype)
     if p_t is None:
         ii, jj = _pair_index(k, False, v_t.device)
         tv = k * (k + 1) // 2
         gram_t = ind.new_zeros((len(ii), x.shape[0]))
-        gram_t[:tv] = (v_t[ii[:tv]] * v_t[jj[:tv]]) @ ind.t()
+        p = v[ii[:tv]] * v[jj[:tv]]
+        gram_t[:tv] = (p.to(torch.bfloat16).to(dtype) if bf16 else p) @ ind.t()
     else:
-        gram_t = p_t @ ind.t()
-    rhs_t = cs * (v_t @ cv.t()) + cb * (v_t @ ind.t())
+        gram_t = p_t.to(dtype) @ ind.t()
+    if bf16 and p_t is not None:
+        ws, wb = fold_weights(v_t, cs, cb)
+        rhs_t = ws @ cv.t() + wb @ ind.t()
+    else:
+        rhs_t = cs * (v @ cv.t()) + cb * (v @ ind.t())
     return gram_t, rhs_t
 
 
 def _check_args(codes, v_t, lam, prior_rhs, noise_t, orientation):
     items, frozen = _check_codes(codes, orientation)
     k = v_t.shape[0]
+    dtype = _compute_dtype(v_t)
     want = {"v_t": (k, frozen), "lam": (k, k), "prior_rhs": (k, 1),
             "noise_t": (k, items)}
     for name, t in (("v_t", v_t), ("lam", lam), ("prior_rhs", prior_rhs),
@@ -492,8 +543,9 @@ def _check_args(codes, v_t, lam, prior_rhs, noise_t, orientation):
                 f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
         if t.device != codes.device:
             raise ValueError(f"{name} is on {t.device}, codes on {codes.device}")
-        if t.dtype != v_t.dtype:
-            raise ValueError(f"{name} is {t.dtype}, v_t is {v_t.dtype}")
+        if name != "v_t" and t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, v_t is {v_t.dtype}: "
+                             f"expected {dtype}")
     return items, k
 
 
@@ -621,15 +673,18 @@ def dense8_sweep_solve(
     dense8_sweep_solve``.  ``p_t=None`` forms the packed products in the
     kernel (#1, ``layout`` ignored); a given ``p_t`` is summed over each
     item's rated entries, reading only the valid rows of ``layout`` (#2).
+    ``v_t`` and ``p_t`` may be bf16 (lam, prior_rhs, noise_t float32; the
+    bf16 instances, rounding as the module docstring says).
     The JAX package's ``BPMF_D8_FOLD`` (the cb-term as K extra rows of p_t,
-    which saves the TPU an MXU pass) has no counterpart: the kernel weighs
-    each rating by cs*code + cb on both routes, which changes only
-    rounding.
+    which saves the TPU an MXU pass) has no counterpart at float32: the
+    kernel weighs each rating by cs*code + cb on both routes, which changes
+    only rounding; on bf16 operands #2 rounds the rhs weights as its
+    default does (:func:`fold_weights`).
 
     CPU tensors take the plain version (:func:`dense8_sweep_solve_ref`);
-    CUDA tensors take the CUDA kernel, which needs float32 and the JAX
-    package's gate (:func:`solve_fused_supported`: K <= 41, 39 with an
-    aligned ``p_t``).  The kernel runs K on the next capacity of
+    CUDA tensors take the CUDA kernel, which needs float32 or bf16 operands
+    and the JAX package's gate (:func:`solve_fused_supported`: K <= 41, 39
+    with an aligned ``p_t``).  The kernel runs K on the next capacity of
     :data:`INKERNEL_CAPACITIES` (#2 at K in :data:`HOISTED_K` on its own
     instance), the system padded block-diagonally: zero columns of the
     frozen items, the identity on the prior's extra diagonal, zero prior
@@ -662,8 +717,9 @@ def dense8_sweep_solve(
                                       cs, cb, alpha, orientation, layout)
     if codes.device.type != "cuda":
         raise ValueError(f"dense8_sweep_solve: no kernel for device {codes.device}")
-    if v_t.dtype != torch.float32:
-        raise ValueError(f"the CUDA kernel is float32-only, got {v_t.dtype}")
+    suffix = _operand_suffix(v_t, p_t)
+    if lam.dtype != torch.float32:
+        raise ValueError(f"the CUDA kernel solves in float32, got {lam.dtype}")
     gate = "tight" if p_t is None else layout
     if not solve_fused_supported(k, gate):
         raise ValueError(
@@ -689,29 +745,23 @@ def dense8_sweep_solve(
     # temporaries may be freed before the kernel runs: the caching
     # allocator reuses their memory only for later work on this stream
     r, c = codes.shape
-    err = _kernel()(codes.data_ptr(), codes.element_size(), r, c,
-                    int(orientation == "rows"), kp,
-                    v.data_ptr(), None if p is None else p.data_ptr(),
-                    None if p_rows is None else p_rows.data_ptr(),
-                    0 if p is None else p.shape[1], int(layout == "aligned"), k,
-                    lam_c.data_ptr(), prior.data_ptr(), noise.data_ptr(),
-                    cs, cb, alpha, plan.segments, plan.tiles_per_segment,
-                    None if partial is None else partial.data_ptr(),
-                    None if arrivals is None else arrivals.data_ptr(),
-                    out.data_ptr(), stream)
+    err = _kernel(bool(suffix))(
+        codes.data_ptr(), codes.element_size(), r, c, int(orientation == "rows"),
+        kp, v.data_ptr(), None if p is None else p.data_ptr(),
+        None if p_rows is None else p_rows.data_ptr(),
+        0 if p is None else p.shape[1], int(layout == "aligned"), k,
+        lam_c.data_ptr(), prior.data_ptr(), noise.data_ptr(),
+        cs, cb, alpha, plan.segments, plan.tiles_per_segment,
+        None if partial is None else partial.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
+        out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"dense8_sweep_solve kernel launch failed: cudaError {err}")
-    if p is None:
-        dense8_sweep_solve.launches += 1
-    else:
-        sweep_hoisted_launches[layout] += 1
-    key = sweep_instance_key(k, operand)
+    sweep_launches[operand + suffix] += 1
+    key = sweep_instance_key(k, operand, v_t.dtype)
     sweep_instance_launches[key] = sweep_instance_launches.get(key, 0) + 1
     return out[:, :k].t()
-
-
-dense8_sweep_solve.launches = 0  # #1's CUDA launches (not plain-version calls)
 
 
 @functools.cache
@@ -730,13 +780,14 @@ def sweep_instance(k: int, operand: str) -> tuple[int, bool]:
 
 
 @functools.cache
-def sweep_instance_key(k: int, operand: str) -> str:
-    """The name of the instance that runs K with ``operand`` in
-    :data:`sweep_instance_launches`: '<operand>_c<capacity>', or
-    '<layout>_k<K>' for #2's instances at :data:`HOISTED_K`."""
+def sweep_instance_key(k: int, operand: str, dtype=torch.float32) -> str:
+    """The name of the instance that runs K with ``operand`` on operands of
+    ``dtype`` (float32 or bf16) in :data:`sweep_instance_launches`:
+    '<operand>_c<capacity>', or '<layout>_k<K>' for #2's instances at
+    :data:`HOISTED_K`, with :data:`OPERAND_SUFFIX`'s suffix."""
     kp, runtime = sweep_instance(k, operand)
     return (f"{operand}_c{kp}" if operand == "inkernel" or runtime
-            else f"{operand}_k{k}")
+            else f"{operand}_k{k}") + OPERAND_SUFFIX[dtype]
 
 
 @functools.cache
@@ -766,11 +817,13 @@ def _item_major(v_t, lam, prior_rhs, noise_t, kp):
 
 
 @functools.cache
-def _kernel():
-    """The built kernel's C entry point (built on first use)."""
+def _kernel(bf16: bool = False):
+    """The megakernel's C entry point for float32 or bf16 operands (built
+    on first use, one library each)."""
     from bpmf_tpu_torch.ops._build import load
 
-    fn = load("dense8_sweep_solve").bpmf_dense8_sweep_solve
+    name = "dense8_sweep_solve" + ("_bf16" if bf16 else "")
+    fn = getattr(load(name), "bpmf_" + name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = ctypes.c_int
     fn.argtypes = [p, i, i, i, i, i, p, p, p, i, i, i, p, p, p, f, f, f, i, i,
@@ -785,21 +838,30 @@ def dense8_sweep_solve_ref(codes, p_t, v_t, lam, prior_rhs, noise_t, cs, cb,
     (``p_t=None``) or against the valid rows of ``p_t`` in ``layout``; then
     ``torch.linalg`` Cholesky and triangular solves.  Reads only the lower
     triangle of ``lam + alpha * G``, like the kernels.  A non-positive-
-    definite system gives NaN, as the JAX kernel does."""
-    dtype = v_t.dtype
+    definite system gives NaN, as the JAX kernel does.  bf16 operands round
+    as :func:`dense8_gram_rhs_ref` says, and the rest is float32."""
+    dtype = _compute_dtype(v_t)
+    bf16 = v_t.dtype == torch.bfloat16
     k = v_t.shape[0]
     x = codes if orientation == "rows" else codes.t()    # [items, N]
     ind = (x != 0).to(dtype)
     cv = x.to(dtype)
+    v = v_t.to(dtype)
     if p_t is None:
-        outer = (v_t[:, None, :] * v_t[None, :, :]).reshape(k * k, -1)
+        outer = (v[:, None, :] * v[None, :, :]).reshape(k * k, -1)
+        if bf16:
+            outer = outer.to(torch.bfloat16).to(dtype)
         gram = (ind @ outer.t()).reshape(-1, k, k)        # [items, K, K]
     else:
         rows, ii, jj = (torch.as_tensor(a, dtype=torch.long, device=v_t.device)
                         for a in _layout_rows(k, layout))
         gram = ind.new_zeros((x.shape[0], k, k))
-        gram[:, ii, jj] = ind @ p_t[rows].t()             # lower triangle
-    rhs = cs * (cv @ v_t.t()) + cb * (ind @ v_t.t())      # [items, K]
+        gram[:, ii, jj] = ind @ p_t[rows].to(dtype).t()   # lower triangle
+    if bf16 and p_t is not None:
+        ws, wb = fold_weights(v_t, cs, cb)
+        rhs = cv @ ws.t() + ind @ wb.t()                  # [items, K]
+    else:
+        rhs = cs * (cv @ v.t()) + cb * (ind @ v.t())      # [items, K]
     chol = cholesky_or_nan(lam + alpha * gram)
     y = torch.linalg.solve_triangular(
         chol, (rhs + prior_rhs.t())[..., None], upper=False)

@@ -22,6 +22,11 @@ the layout: one [num + 1, K] N(0, I) table per (iteration, side), row
 Reference quirk kept under ``Config.strict_reference`` (default): with a
 propagated posterior the per-item prior term is ``propLambda_i @ hp.mu``,
 the shared sampled hyper-mean (c++/sample.cpp:285).
+
+bf16 matmul inputs (``Config.matmul_dtype="bfloat16"``): the frozen table
+comes rounded to bf16 and is gathered so, and every product and sum of the
+Gram and rhs is in the compute dtype (:func:`matmul_acc`), as the JAX
+package's ``gather_dtype`` and ``preferred_element_type`` do.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from bpmf_tpu_torch.ops.mvnormal import HyperParams, cholesky_or_nan
 
 __all__ = [
     "BucketDev",
+    "matmul_acc",
     "UpdateOut",
     "gram_rhs",
     "segment_sum",
@@ -81,6 +87,28 @@ class BucketDev(NamedTuple):
                    slot_valid=dev(b.slot_valid, dtype), segments=segs)
 
 
+def matmul_acc(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """a @ b (2-D, or batched 3-D) with every product and sum in ``dtype``:
+    the JAX package's matmul of matmul-dtype operands with
+    ``preferred_element_type`` the compute dtype.  Two bf16 operands on the
+    card into float32 take ``torch.mm``/``torch.bmm`` with ``out_dtype``
+    (cuBLAS's bf16 product with float32 sums: probed on an H100 with torch
+    2.11, 14x faster than converting the operands at [4096, 6144] x [6144,
+    1024]; PERF.md section 6).  Otherwise, and on the CPU, which has no
+    kernel for it, operands of another type are converted to ``dtype``
+    first, which is exact, so each product of two bf16 values is exact and
+    only the sums round.  float32 products on the card run without TF32
+    (PyTorch's default)."""
+    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and dtype == torch.float32):
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=dtype)
+    if a.dtype != dtype:
+        a = a.to(dtype)
+    if b.dtype != dtype:
+        b = b.to(dtype)
+    return a @ b
+
+
 class UpdateOut(NamedTuple):
     u: torch.Tensor           # [S, K] new item vectors (padding slots too)
     item_ids: torch.Tensor    # [S]
@@ -123,7 +151,10 @@ def gram_rhs(
     """Per-slot Gram [S, K, K] and rhs [S, K] over the rated neighbours of
     one bucket (``bpmf_tpu.ops.update.gram_rhs``; computeMuLambda,
     c++/sample.cpp:248-258).  Masked entries point at row 0 of the other
-    side and are zeroed by the mask.
+    side and are zeroed by the mask.  A bf16 ``other_items`` (bf16 matmul
+    inputs: the sampler rounds the frozen table before the gather) is
+    gathered as it is; the weights stay in the ratings' dtype, and the Gram
+    and rhs are summed in it.
 
     ``ablate`` is the perf-debug knob (``Config.ablate``): 'nogather' takes
     row 0 of the other side for every neighbour instead of gathering,
@@ -134,22 +165,22 @@ def gram_rhs(
     ablates = ablate.split(",")
     r_rows, width = bucket.nbr.shape
     k = other_items.shape[-1]
-    dtype = other_items.dtype
+    dtype = bucket.val.dtype
     mask = bucket.mask.to(dtype)
     if "nogather" in ablates:
         vg = other_items[:1, None, :].expand(r_rows, width, k)
     else:
         vg = other_items.index_select(0, bucket.nbr.reshape(-1))
         vg = vg.reshape(r_rows, width, k)
-    vg = vg * mask[..., None]                                # [R, W, K]
+    vg = vg * bucket.mask.to(vg.dtype)[..., None]            # [R, W, K]
     wts = (bucket.val - mean_rating) * mask * alpha          # [R, W]
     if "nogram" in ablates:
-        gram = vg.new_zeros((r_rows, k, k)) + vg[:, 0, 0, None, None]
-        rhs = vg.sum(1)
+        gram = mask.new_zeros((r_rows, k, k)) + vg[:, 0, 0, None, None].to(dtype)
+        rhs = vg.sum(1).to(dtype)
     else:
         vg_t = vg.transpose(1, 2)                            # [R, K, W]
-        gram = torch.bmm(vg_t, vg)
-        rhs = torch.bmm(vg_t, wts[..., None])[..., 0]
+        gram = matmul_acc(vg_t, vg, dtype)
+        rhs = matmul_acc(vg_t, wts[..., None], dtype)[..., 0]
     if split:
         return (segment_sum(gram, bucket.segments, n_slots),
                 segment_sum(rhs, bucket.segments, n_slots))

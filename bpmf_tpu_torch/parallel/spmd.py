@@ -27,6 +27,19 @@ collective, as the JAX package's ``all_gather`` and ``psum`` are
 identities on one device.  Noise rows are keyed by original id, so a chain
 is the same at any rank count up to reduction order.
 
+bf16 matmul inputs (``Config.matmul_dtype="bfloat16"``): the dense8 sweeps
+take ``matmul_dtype`` (``torch.bfloat16``), the dense routes read it off
+the dense blocks, which the sampler keeps in it, the bucketed routes off
+the frozen table, which the sampler rounds; each rounds where the JAX
+package's sweep rounds: the frozen side (one device: its packed products
+too, formed from the rounded side; sharded dense8: the packed products of
+the float32 side, rounded), the dense blocks and the outer products of
+the float32 side, the bucketed table before its gather.  Every product
+and sum is in the compute dtype (``ops.update.matmul_acc``, the kernels'
+bf16 instances).  The bucketed gathers and halo rings, and the final
+evaluation's gathers, move the bf16 tables; every other exchange moves
+float32.
+
 ``ablate`` is the perf-debug knob (``Config.ablate``, comma-separated):
 ``nomatmul`` replaces the Gram and rhs by constants of the same shape,
 ``nosolve`` the solve by a sum of its inputs, as the JAX package's sweeps
@@ -67,7 +80,12 @@ from bpmf_tpu_torch.ops.pallas_solve import (
     tri_combine_solve_sample,
     tri_tight_pairs,
 )
-from bpmf_tpu_torch.ops.update import BucketDev, gram_rhs, posterior_precision_rhs
+from bpmf_tpu_torch.ops.update import (
+    BucketDev,
+    gram_rhs,
+    matmul_acc,
+    posterior_precision_rhs,
+)
 from bpmf_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
@@ -121,6 +139,8 @@ def dense8_half_sweep(
     grouped: bool = False,      # the packed-triangle solve's layout pin
     ablate: str = "",           # perf-debug (Config.ablate)
     max_degree: Optional[int] = None,  # the side's most-rated item's ratings
+    matmul_dtype=None,          # the kernels' operand dtype (torch.bfloat16:
+                                # bf16 matmul inputs); None: the frozen side's
 ) -> SideState:
     """Resample every item of one side from the int8 code array
     (``bpmf_tpu.parallel.spmd.dense8_half_sweep``, single device), then the
@@ -137,16 +157,22 @@ def dense8_half_sweep(
     run on the split pipeline only, where the JAX package also sends them:
     ``nomatmul`` launches no Gram kernel, ``nosolve`` no solve kernel.
     ``max_degree`` sets how far the megakernel and the in-kernel Gram
-    split the frozen axis (``ops.dense8.sweep_plan``)."""
+    split the frozen axis (``ops.dense8.sweep_plan``).  With a bf16
+    ``matmul_dtype`` the kernels take the frozen side rounded to bf16 and
+    the packed products of the rounded side, rounded
+    (``bpmf_tpu/parallel/spmd.py:834-866``)."""
     ablates = ablate.split(",")
+    dtype = other_items.dtype
     v_t = other_items.t()
+    if matmul_dtype is not None:
+        v_t = v_t.to(matmul_dtype)
     if route in FUSED_ROUTES:
         if prior_tri_t is not None:
             raise ValueError("a per-item prior needs the split route")
         if "nomatmul" in ablates or "nosolve" in ablates:
             raise ValueError("the nomatmul/nosolve ablations need the split route")
         layout = SWEEP_LAYOUT.get(route, "tight")
-        p_t = (packed_tri_t(v_t, aligned=layout == "aligned")
+        p_t = (packed_tri_t(v_t.to(dtype), aligned=layout == "aligned").to(v_t.dtype)
                if route != "fused" else None)
         prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
         u = dense8_sweep_solve(codes, p_t, v_t, hp.lambda_f, prior_rhs,
@@ -156,11 +182,12 @@ def dense8_half_sweep(
         n_items = noise.shape[0]
         if "nomatmul" in ablates:
             # a constant Gram that still depends on the frozen side
-            gram_t = v_t.new_zeros((tight_rows(v_t.shape[0]), n_items)) \
-                + v_t[0, 0] * 1e-12
-            rhs_t = v_t.new_zeros((v_t.shape[0], n_items))
+            gram_t = noise.new_zeros((tight_rows(v_t.shape[0]), n_items)) \
+                + v_t[0, 0].to(dtype) * 1e-12
+            rhs_t = noise.new_zeros((v_t.shape[0], n_items))
         else:
-            p_t = packed_tri_t(v_t) if route == "hoisted" else None
+            p_t = (packed_tri_t(v_t.to(dtype)).to(v_t.dtype) if route == "hoisted"
+                   else None)
             gram_rhs = (dense8_gram_rhs_rows if orientation == "rows"
                         else dense8_gram_rhs_cols)
             gram_t, rhs_t = gram_rhs(codes, p_t, v_t, cs, cb,
@@ -201,6 +228,7 @@ def dense8_half_sweep_sharded(
     grouped: bool = False,
     max_degree: Optional[int] = None,  # the most ratings an item has within
                                        # this rank's codes
+    matmul_dtype=None,          # as dense8_half_sweep's
 ) -> SideState:
     """The int8 dense-stream half-sweep over ranks (``bpmf_tpu.parallel.
     spmd.dense8_half_sweep_sharded``): the code array is sharded by user
@@ -220,18 +248,26 @@ def dense8_half_sweep_sharded(
     the JAX package takes the split pipeline at D > 1 whatever
     ``BPMF_D8_SOLVE`` says.  ``route`` is decided on the local shapes,
     (R/D, C) for rows and (C, R/D) for cols, as the JAX package's
-    ``pt_mode`` sees them."""
+    ``pt_mode`` sees them.  With a bf16 ``matmul_dtype`` the kernels take
+    the frozen side rounded to bf16 and the packed products of the float32
+    side, rounded (``bpmf_tpu/parallel/spmd.py:1035-1060``): another
+    rounding than one device's, so two ranks at bf16 are one device up to
+    the products' rounding."""
     if route not in ("inkernel", "hoisted"):
         raise ValueError(f"the sharded dense8 sweep runs the split pipeline, "
                          f"not route {route!r}")
+    md = matmul_dtype or other_items.dtype
+
+    def operands(v32):
+        p_t = packed_tri_t(v32).to(md) if route == "hoisted" else None
+        return p_t, v32.to(md)
+
     if orientation == "rows":
-        v_t = mesh.all_gather(other_items).t()              # [K, C]
-        p_t = packed_tri_t(v_t) if route == "hoisted" else None
+        p_t, v_t = operands(mesh.all_gather(other_items).t())   # [K, C]
         gram_t, rhs_t = dense8_gram_rhs_rows(codes, p_t, v_t, cs, cb,
                                              max_degree=max_degree)
     elif orientation == "cols":
-        v_t = other_items.t()                                # [K, R/D]
-        p_t = packed_tri_t(v_t) if route == "hoisted" else None
+        p_t, v_t = operands(other_items.t())                    # [K, R/D]
         gram_t, rhs_t = dense8_gram_rhs_cols(codes, p_t, v_t, cs, cb,
                                              max_degree=max_degree)
         t_rows, k, cols = gram_t.shape[0], rhs_t.shape[0], gram_t.shape[1]
@@ -379,13 +415,14 @@ def _reduce_solve(state, packed, hp, noise, it, *, num, local_valid, alpha,
     return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
-def _partials(buckets, splits, other_l, mean_rating, alpha, ablate, rows):
+def _partials(buckets, splits, other_l, mean_rating, alpha, ablate, rows,
+              dtype):
     """The partial Gram and rhs of ``buckets`` against this rank's frozen
     shard ``other_l`` (the buckets' ``nbr`` are its local slots), summed by
-    their slots' ``item_ids`` into ``rows`` rows of [K*K + K], Gram first;
-    padding slots add zeros (``slot_valid``)."""
+    their slots' ``item_ids`` into ``rows`` rows of [K*K + K] in ``dtype``,
+    Gram first; padding slots add zeros (``slot_valid``)."""
     k = other_l.shape[-1]
-    out = other_l.new_zeros((rows, k * k + k))
+    out = other_l.new_zeros((rows, k * k + k), dtype=dtype)
     for b, split in zip(buckets, splits):
         g, r = gram_rhs(b, other_l, mean_rating, alpha, split=split,
                         n_slots=b.item_ids.shape[0], ablate=ablate)
@@ -428,7 +465,7 @@ def reduce_half_sweep(
     rank's slots, the side's solver (#8 under smart/pallas) and the stats
     summed over ranks."""
     packed = _partials(buckets, splits, other_items, mean_rating, alpha,
-                       ablate, padded_num)
+                       ablate, padded_num, state.items.dtype)
     if mesh is not None:
         packed = mesh.reduce_scatter(packed)
     return _reduce_solve(
@@ -473,7 +510,7 @@ def reduce_half_sweep_chunked(
     mine = None
     for dest, (buckets, splits) in enumerate(per_dest):
         part = _partials(buckets, splits, other_items, mean_rating, alpha,
-                         ablate, lp)
+                         ablate, lp, state.items.dtype)
         if mesh is not None:
             part = mesh.all_reduce(part)
         if dest == rank:
@@ -512,10 +549,13 @@ def dense_half_sweep(
     computeMuLambda as two matmuls, the Gram against the frozen side's
     row-wise outer products [N, K*K] and the rhs against the frozen side
     itself; then the combine, the batched solve of the configured solver,
-    the stats.  Every item of the shard is recomputed in place."""
+    the stats.  Every item of the shard is recomputed in place.  bf16 blocks
+    (bf16 matmul inputs) take the outer products of the float32 side and
+    the side itself rounded to bf16 (``bpmf_tpu/parallel/spmd.py:349-356``)."""
     ablates = ablate.split(",")
     if mesh is not None:
         other_items = mesh.all_gather(other_items)
+    dtype, md = other_items.dtype, a_ind.dtype
     k = other_items.shape[-1]
     n = other_items.shape[0]
     items = a_val.shape[0]
@@ -523,12 +563,12 @@ def dense_half_sweep(
         eye = torch.eye(k, dtype=other_items.dtype, device=other_items.device)
         gram = other_items.new_zeros((items, k, k)) \
             + eye * (1.0 + other_items[0, 0] * 1e-12)
-        rhs = other_items.new_zeros((items, k)) + a_val[:, :1]
+        rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
     else:
         p = (other_items[:, :, None] * other_items[:, None, :]).reshape(n, k * k)
-        gram = (a_ind @ p).reshape(-1, k, k)
+        gram = matmul_acc(a_ind, p.to(md), dtype).reshape(-1, k, k)
         del p
-        rhs = a_val @ other_items
+        rhs = matmul_acc(a_val, other_items.to(md), dtype)
     precision, full_rhs = posterior_precision_rhs(
         gram, rhs, torch.arange(gram.shape[0], device=gram.device), hp, alpha,
         prop_mu=prop_mu, prop_lambda=prop_lambda,
@@ -577,19 +617,23 @@ def dense_half_sweep_fused(
     kernel (Queue 2 #5/#6) reads.  The JAX function's ``tri_expand_rows``
     and ``BPMF_TRI_ALIGNED_MM`` choose between the tight and the aligned
     layout for the TPU's sublanes; they change only layout and rounding,
-    so, like ``BPMF_D8_FOLD``, they have no counterpart here."""
+    so, like ``BPMF_D8_FOLD``, they have no counterpart here.  bf16 blocks
+    take the packed products of the float32 side and the side itself
+    rounded to bf16 (``bpmf_tpu/parallel/spmd.py:527-536``)."""
     ablates = ablate.split(",")
     if mesh is not None:
         other_items = mesh.all_gather(other_items)
+    dtype, md = other_items.dtype, a_ind_t.dtype
     v_t = other_items.t()
     k, items = v_t.shape[0], a_val.shape[0]
     if "nomatmul" in ablates:
         gram_t = v_t.new_zeros((tight_rows(k), items)) + v_t[0, 0] * 1e-12
-        rhs = other_items.new_zeros((items, k)) + a_val[:, :1]
+        rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
     else:
         ii, jj = _tight_pair_index(k, v_t.device)
-        gram_t = (v_t[ii] * v_t[jj]) @ a_ind_t              # [T_tight, I]
-        rhs = a_val @ other_items
+        gram_t = matmul_acc((v_t[ii] * v_t[jj]).to(md), a_ind_t,
+                            dtype)                           # [T_tight, I]
+        rhs = matmul_acc(a_val, other_items.to(md), dtype)
     rhs_t = _combine_prior_rhs(rhs.t(), hp, prior_tri_t, prior_rhs_t, grouped)
     if "nosolve" in ablates:
         u = (rhs_t + noise.t() + _aligned_head(gram_t, k)).t()

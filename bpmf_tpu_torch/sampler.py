@@ -20,8 +20,12 @@ statistics reduce-scattered onto their owners, or all-reduced one
 destination at a time in the chunked form); the evaluation is
 entry-sharded.
 
-Features outside the ported slices raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` entry; none is ignored: bf16 matmul inputs.
+bf16 matmul inputs (``Config.matmul_dtype="bfloat16"``; ``auto`` stays
+float32 here, as the JAX package resolves it off a TPU) run on every route
+with the JAX package's rounding: the dense8 kernels' bf16 instances, the
+dense blocks and the bucketed gathers in bf16 with float32 sums, and the
+final all-items evaluation on bf16 tables (``bpmf_tpu/sampler.py:1204-
+1210``); the routes are those of float32.
 
 Beside the chain: the aggregated posterior and the six output files (``-o``)
 with the per-iteration dumps (``-v``), checkpoints and resume
@@ -86,7 +90,6 @@ from bpmf_tpu_torch.utils.counters import Counters, tick
 __all__ = ["BPMF", "HostDraws", "Side", "TorchDraws", "rank_buckets",
            "unsupported"]
 
-SPLIT = "ROADMAP.md Queue 1 #3 (bf16 matmul inputs)"
 # the ablations that keep a side on its dense8 or fused dense route
 # (bpmf_tpu/sampler.py:296-297, :486-487: Config.ablate as a whole string);
 # any other value sends dense8 data to the dense or bucketed route
@@ -105,14 +108,10 @@ PHASE_NAMES = {
 
 
 def unsupported(cfg: Config) -> list[str]:
-    """Why ``cfg`` asks for something outside the ported slice, one line per
-    feature, each naming its ROADMAP.md entry; empty when it is all in."""
-    checks = [
-        (cfg.resolve_matmul_dtype("cuda") != "float32",
-         f"matmul_dtype {cfg.matmul_dtype}", SPLIT),
-    ]
-    return [f"{what}: not ported yet, see {where}"
-            for hit, what, where in checks if hit]
+    """Why ``cfg`` asks for something outside the ported slices, one line
+    per feature, each naming its ROADMAP.md entry: empty, since every
+    Config of the JAX package is ported."""
+    return []
 
 
 def _splitmix64(x: int) -> int:
@@ -469,8 +468,7 @@ class BPMF:
             return
         cfg = self.cfg
         min_side = min(self.train.shape)
-        # float64 when the smaller side has fewer than 2K items; matmuls run
-        # in the compute dtype (unsupported() refuses bf16 inputs)
+        # float64 when the smaller side has fewer than 2K items
         self.dtype = getattr(torch, cfg.resolve_dtype(min_side))
         if cfg.dtype == "auto" and self.dtype == torch.float64:
             self._log(
@@ -481,6 +479,11 @@ class BPMF:
         cfg.dtype = "float64" if self.dtype == torch.float64 else "float32"
         # the TPU's solver policy: auto -> smart, float64 -> xla
         self.solver = cfg.resolve_solver("tpu")
+        # the Gram matmuls' input dtype (bpmf_tpu/sampler.py:471-473): auto
+        # resolves off a TPU, to float32; sums stay in the compute dtype
+        self.matmul_dtype = cfg.resolve_matmul_dtype("cuda")
+        self._md = (torch.bfloat16 if self.matmul_dtype == "bfloat16"
+                    else self.dtype)
         q = self._route()
         dev, dtype = self.device, self.dtype
 
@@ -582,7 +585,7 @@ class BPMF:
         """A side's device data (``bpmf_tpu/sampler.py:510-599``), this
         rank's rows of each: its maps, its propagated posterior (packed on
         dense8 and fused sides, whole elsewhere), and its Gram layout: the
-        dense block, precomputed once in the compute dtype from float32
+        dense block, precomputed once in the matmul dtype from float32
         values as the JAX package does (the indicator transposed on a fused
         side), or the degree buckets (``Side._buckets_dev``)."""
         cfg, dev, dtype = self.cfg, self.device, self.dtype
@@ -607,10 +610,11 @@ class BPMF:
             val = ((block - np.float32(self.mean_rating)) * ind
                    * np.float32(cfg.alpha)).astype(np.float32)
             del block
-            a_ind = torch.as_tensor(ind, dtype=dtype, device=dev)
+            md = self._md
+            a_ind = torch.as_tensor(ind, dtype=md, device=dev)
             if side.route == "fused":
                 a_ind = a_ind.t().contiguous()
-            aux["dense"] = (a_ind, torch.as_tensor(val, dtype=dtype, device=dev))
+            aux["dense"] = (a_ind, torch.as_tensor(val, device=dev).to(md))
         elif side.impl == "bucketed":
             aux.update(self._bucket_aux(side, other))
         return _SideAux(**aux)
@@ -717,7 +721,9 @@ class BPMF:
         self._log(f"update_freq: {cfg.update_freq}")
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
-        self._log(f"device: {self.device} ({name}), dtype {cfg.dtype}")
+        md = str(self._md).removeprefix("torch.")
+        self._log(f"device: {self.device} ({name}), dtype {cfg.dtype}"
+                  + (f", matmul inputs {md}" if self._md != self.dtype else ""))
         self._log(f"solver: {self.solver}")
         if d > 1:
             # assignment unbalance (Sys::assign prints the same idea,
@@ -754,7 +760,7 @@ class BPMF:
                 nbytes = aux.dense[1].element_size()
                 self._log(f"gram layout {side.name}: dense adjacency "
                           f"{d}x{lp}x{opn} x2 blocks "
-                          f"({2 * d * lp * opn * nbytes / 1e6:.0f} MB {cfg.dtype}), "
+                          f"({2 * d * lp * opn * nbytes / 1e6:.0f} MB {md}), "
                           f"route {side.route}{prior}")
             elif side.exchange == "reduce_chunked":
                 n_b = sum(len(s) for _, s in aux.per_dest)
@@ -798,6 +804,7 @@ class BPMF:
         cfg = self.cfg
         aux = self._aux[side.name]
         bucketed = side.exchange in ("gather", "halo")
+        md = self._md
         ids = aux.bucket_orig if bucketed else aux.local_orig
         if "nonoise" in self._ablates:
             noise = torch.zeros((ids.shape[0], cfg.num_latent), dtype=self.dtype,
@@ -812,6 +819,9 @@ class BPMF:
                 strict_reference=cfg.strict_reference, solver=self.solver,
                 prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda,
                 ablate=cfg.ablate, mesh=self.mesh)
+            # bf16 matmul inputs: the frozen table rounded once, before
+            # any exchange or gather (bpmf_tpu/ops/update.py:78-82)
+            other_items = other_items.to(md)
             if side.exchange == "reduce_chunked":
                 return reduce_half_sweep_chunked(
                     state, aux.per_dest, other_items, hp, noise, it,
@@ -832,7 +842,8 @@ class BPMF:
                 burnin=cfg.burnin, cs=self._d8_cs, cb=self._d8_cb,
                 orientation=orientation, route=side.route,
                 prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
-                grouped=self.grouped, max_degree=self._d8_max_degree[side.name])
+                grouped=self.grouped, max_degree=self._d8_max_degree[side.name],
+                matmul_dtype=md)
         common = dict(num=side.num, local_valid=aux.local_valid,
                       alpha=cfg.alpha, burnin=cfg.burnin, ablate=cfg.ablate)
         if side.impl == "dense8":
@@ -842,7 +853,7 @@ class BPMF:
                 orientation=orientation, route=side.route,
                 prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
                 grouped=self.grouped, max_degree=self._d8_max_degree[side.name],
-                **common)
+                matmul_dtype=md, **common)
         if side.route == "fused":
             return dense_half_sweep_fused(
                 state, *aux.dense, other_items, hp, noise, it,
@@ -855,16 +866,17 @@ class BPMF:
             prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda, mesh=self.mesh,
             **common)
 
-    def _predict(self, it: int):
-        """The evaluation of iteration ``it`` on the current tables:
-        entry-sharded at D > 1 (``bpmf_tpu/sampler.py:649-660``)."""
+    def _predict(self, it: int, dtype=None):
+        """The evaluation of iteration ``it`` on the current tables, taken
+        in ``dtype`` (the final pass: the matmul dtype): entry-sharded at
+        D > 1 (``bpmf_tpu/sampler.py:649-660``)."""
         kw = dict(mean_rating=self._mean_rating, burnin=self.cfg.burnin)
+        users = self.state_u.items.to(dtype or self.dtype)
+        movies = self.state_m.items.to(dtype or self.dtype)
         if self.mesh is not None:
-            return predict_sharded(self.mesh, self.ev, self.est,
-                                   self.state_u.items, self.state_m.items, it,
-                                   nnz_true=len(self.t_val), **kw)
-        return predict(self.ev, self.est, self.state_u.items,
-                       self.state_m.items, it, **kw)
+            return predict_sharded(self.mesh, self.ev, self.est, users, movies,
+                                   it, nnz_true=len(self.t_val), **kw)
+        return predict(self.ev, self.est, users, movies, it, **kw)
 
     def _iter(self, it: int, skip_predict: bool = False) -> Metrics:
         """One full Gibbs iteration (c++/bpmf.cpp:184-196): both hyperprior
@@ -1046,8 +1058,9 @@ class BPMF:
         elapsed = tick() - begin
 
         # final prediction pass (c++/bpmf.cpp:225,242): one more Welford
-        # update with the last sample
-        self.est, rmse, rmse_avg = self._predict(self.iter)
+        # update with the last sample, its tables in the matmul dtype
+        # (bpmf_tpu/sampler.py:1204-1210)
+        self.est, rmse, rmse_avg = self._predict(self.iter, self._md)
         self.rmse = float(rmse)
         self.rmse_avg = float(rmse_avg)
 

@@ -1,10 +1,11 @@
 """Where the in-kernel Gram's (#3) time goes on the card: the kernel as
-built, and variants of ``csrc/dense8_gram_rhs.cu`` with one part taken
-out, each timed on the same inputs.
+built, and variants of its float32 library (``csrc/dense8_gram_rhs.cu``
+on the template ``csrc/dense8_gram_rhs.cuh``) with one part taken out,
+each timed on the same inputs.
 
     python -m bpmf_tpu_torch.scripts.gram_variants [--variants a,b,...]
 
-Variants (each a textual edit of a copy of the source, built with the
+Variants (each a textual edit of a copy of the template, built with the
 package's nvcc flags into ``build/gram_variants/<name>/``; a variant whose
 edit no longer matches the source stops the script):
 
@@ -34,16 +35,16 @@ import shutil
 import subprocess
 
 EDITS = {
-    "nofma": [("for (int j4 = 0; j4 < KP / 4; ++j4) {\n      const float4 c = row4[j4];",
-               "for (int j4 = 0; j4 < 0; ++j4) {\n      const float4 c = row4[j4];")],
-    "noring": [("        cp_async<16>(dst + s * kv + 4 * piece,",
-                "        if (kv < 0) cp_async<16>(dst + s * kv + 4 * piece,")],
+    "nofma": [("for (int j4 = 0; j4 < KP / 4; ++j4) {\n      const auto c = load_piece(",
+               "for (int j4 = 0; j4 < 0; ++j4) {\n      const auto c = load_piece(")],
+    "noring": [("        cp_async<bpmf::kPieceBytes<V>>(dst + s * kv + 4 * piece,",
+                "        if (kv < 0) cp_async<bpmf::kPieceBytes<V>>(dst + s * kv + 4 * piece,")],
     "noepi": [("if (j <= i) dst[tight_row(i, j, k)] = acc.g[q][j];",
                "if (j <= i && acc.g[q][j] == 1234.5f) dst[tight_row(i, j, k)] = acc.g[q][j];")],
-    "tiles": [("  if (a.k <= 16) return launch_rows<T, 16>(grid, s, a);\n"
-               "  if (a.k <= 32) return launch_rows<T, 32>(grid, s, a);\n"
-               "  if (a.k <= 48) return launch_rows<T, 48>(grid, s, a);\n"
-               "  if (a.k <= 64) return launch_rows<T, 64>(grid, s, a);\n", "")],
+    "tiles": [("  if (a.k <= 16) return launch_rows<T, V, 16>(grid, s, a);\n"
+               "  if (a.k <= 32) return launch_rows<T, V, 32>(grid, s, a);\n"
+               "  if (a.k <= 48) return launch_rows<T, V, 48>(grid, s, a);\n"
+               "  if (a.k <= 64) return launch_rows<T, V, 64>(grid, s, a);\n", "")],
 }
 
 
@@ -53,15 +54,15 @@ def build_variant(name: str) -> str:
 
     out = _build.BUILD_DIR.parent / "gram_variants" / name
     out.mkdir(parents=True, exist_ok=True)
-    for f in ("dense8_gram_rhs.cu", "dense8_stage.cuh"):
+    for f in ("dense8_gram_rhs.cu", "dense8_gram_rhs.cuh", "dense8_stage.cuh"):
         shutil.copy(_build.CSRC / f, out / f)
-    src = (out / "dense8_gram_rhs.cu").read_text()
+    src = (out / "dense8_gram_rhs.cuh").read_text()
     for old, new in EDITS[name]:
         if src.count(old) != 1:
             raise SystemExit(f"gram_variants: the {name} edit no longer matches "
-                             "csrc/dense8_gram_rhs.cu")
+                             "csrc/dense8_gram_rhs.cuh")
         src = src.replace(old, new)
-    (out / "dense8_gram_rhs.cu").write_text(src)
+    (out / "dense8_gram_rhs.cuh").write_text(src)
     lib = out / "lib.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                            str(out / "dense8_gram_rhs.cu")],
@@ -146,7 +147,7 @@ def main(argv=None):
     for name, lib in libs.items():
         fn = ctypes.CDLL(lib).bpmf_dense8_gram_rhs
         fn.restype, fn.argtypes = real().restype, real().argtypes
-        d8._gram_kernel = lambda fn=fn: fn
+        d8._gram_kernel = lambda bf16=False, fn=fn: fn
         try:
             print(json.dumps({"variant": name, **times(cases)}), flush=True)
         finally:

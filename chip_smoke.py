@@ -6,9 +6,9 @@ the port builds, is right and runs its paths on the card.
 
 Phases, each printing JSON lines:
   1. device   torch/CUDA versions, the card, its power limit
-  2. build    nvcc builds the five kernel libraries of bpmf_tpu_torch/csrc,
-              all at once; each kernel's registers and spill bytes
-              (ptxas)
+  2. build    nvcc builds the seven kernel libraries of bpmf_tpu_torch/csrc
+              (the dense8 kernels' bf16 instances in two of their own), all
+              at once; each kernel's registers and spill bytes (ptxas)
   3. kernel   the megakernel (#1), and the megakernel streaming a hoisted
               operand (#2) in the tight and the 8-aligned layout, against
               their plain PyTorch versions at the padded ml-1m shape
@@ -188,6 +188,27 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               --dist 127.0.0.1:<port>,1,0 (one process, one NCCL rank
               through the TCP store), 20 iterations, the trajectory of the
               same run without it
+  26. bf16   bf16 matmul inputs (Config.matmul_dtype="bfloat16", the JAX
+              package's own main path on a TPU; cs = 0.7, cb = -1.3, which
+              bf16 does not hold): #1 and #2 (tight, aligned) at phase 3's
+              [6144, 4096], K=32, and #3/#4 at K=64, rows + cols, on bf16
+              operands against their plain versions at KERNEL_TOL, the
+              solves also item by item against the float64 draw of the same
+              bf16 system (SOLVE_BOUND), every launch repeated bitwise
+              equal, beside cuBLAS on the same bf16 inputs; the dense
+              routes' bf16 product (torch.mm/bmm with out_dtype float32)
+              timed against converting the operands and an SGEMM, each
+              against float64; then every megakernel capacity of phase 3's
+              WIDE on bf16 operands against plain; then the ml-1m K=32 chain on #1 (4 chunks of 500) and
+              the bucketed ml-1m chain (4 of 500) within 0.01 of 0.5306,
+              the ml-25M half bucketed chain (3 of 20) within 0.01 of
+              1.0902, 2 chunks of 50 of the K=32 chain under
+              BPMF_D8_PT=hoisted (#2 tight) and BPMF_D8_SOLVE=fused_aligned
+              (#2 aligned) and of the K=64 split chain, in-kernel (#3) and
+              under BPMF_D8_PT=hoisted (#4), and phase 13's off-grid fused
+              dense chain (2 of 250, the dense blocks in bf16, within 0.005
+              of its float32 twin); each finite, its launches counted on the
+              bf16 instances only, and 3 iterations against the plain chain
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -201,7 +222,9 @@ after; every kernel must have launched there as often as the path says.
 Then the card's `nvidia-smi` name and power limit, the kernels' JSON line
 (each kernel's time, its plain version's, the library call's where one
 computes the same function, and bound_ms: the larger of the bytes it must
-move over HBM_BYTES_PER_S and its operations over F32_FLOPS_PER_S), and
+move over HBM_BYTES_PER_S and its operations over the peak of their type,
+float32 at F32_FLOPS_PER_S; on bf16 operands the Gram's sums at
+BF16_MMA_FLOPS_PER_S and its products at BF16_FLOPS_PER_S), and
 {"ok": true, ...} last.  Any failure raises: nothing is caught.
 """
 
@@ -237,7 +260,8 @@ CHAIN_TOL = dict(rtol=1e-3, atol=1e-3)   # 3 iterations, same draws
 SOLVE_BOUND = {"per_item": "u*kappa_F(A)*|u|_2 + atol", "u": 2.0 ** -24,
                "atol": 1e-5}
 LIBS = ("dense8_sweep_solve", "dense8_gram_rhs", "tri_combine_solve",
-        "chol_solve_sample", "gather_probe")
+        "chol_solve_sample", "gather_probe", "dense8_sweep_solve_bf16",
+        "dense8_gram_rhs_bf16")
 PROBE_TOL = dict(rtol=1e-4, atol=1e-4)  # sums of 512 f32 terms, other order
 DEFER_TOL = dict(rtol=1e-6, atol=0.0)   # the same predictions, gathered at once
 PAVG_TOL = dict(rtol=1e-5, atol=0.0)    # f32 on the card, float64 from the file
@@ -271,17 +295,30 @@ WIDE = (("inkernel", 33), ("inkernel", 40), ("inkernel", 41), ("tight", 24),
 CS16 = 1 / 64                    # int16 kernel inputs: cs = 2 * CS16 keeps
                                  # cs*code + cb of codes up to 255 near the
                                  # int8 inputs' weights
-# The card's peaks for bound_ms (H100 SXM datasheet, at 700 W): HBM
-# bandwidth, and float32 outside the tensor cores, where every
-# kernel of the port does its arithmetic.
+CS_BF16, CB_BF16 = 0.7, -1.3     # phase 26's kernel inputs: not bf16 values,
+                                 # so the fold's rounding of cs*v, cb*v shows
+BF16_BAND = 0.005                # phase 26: the off-grid chain at bf16
+                                 # against float32, other rounding
+# The card's peaks for bound_ms (H100 SXM datasheet, dense, at 700 W): HBM
+# bandwidth; float32 outside the tensor cores; bf16 operands with float32
+# accumulation on the tensor cores; packed bf16x2 outside them, twice the
+# float32 rate on the same pipes (133.8 TFLOP/s in the H100 whitepaper).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_MMA_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = 2 * F32_FLOPS_PER_S
 
 
-def bound(nbytes, flops):
-    """The least time the card could take for work of ``nbytes`` moved and
-    ``flops`` float32 operations, and which of the two sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes, flops, bf16_mma=0, bf16_vec=0):
+    """The least time the card could take for work of ``nbytes`` moved,
+    ``flops`` float32 operations, ``bf16_mma`` operations on bf16 operands
+    with float32 accumulation (a matmul's) and ``bf16_vec`` packed bf16
+    operations, and which of bytes or operations sets it.  float32 and
+    packed bf16 share the pipes outside the tensor cores, so their times
+    add; the tensor cores run beside them."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / F32_FLOPS_PER_S + bf16_vec / BF16_FLOPS_PER_S,
+                bf16_mma / BF16_MMA_FLOPS_PER_S)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -295,6 +332,17 @@ def gram_flops(k, nnz):
     """One rated entry: the lower triangle of its outer product (K(K+1)/2
     FMAs) and its rhs term (K FMAs)."""
     return nnz * (k * (k + 1) + 2 * k)
+
+
+def bf16_gram_work(k, nnz, n_frozen, inkernel):
+    """The Gram and rhs on bf16 operands by type, for bound(): each rated
+    entry's packed row summed as a matmul against the {0,1} indicator
+    (K(K+1) operations an entry, bf16 operands, float32 accumulation); on
+    in-kernel products, the packed products of the frozen items rounded to
+    bf16 (K(K+1)/2 each, once per frozen item); the rhs (2K an entry) in
+    float32."""
+    return {"flops": nnz * 2 * k, "bf16_mma": nnz * k * (k + 1),
+            "bf16_vec": n_frozen * k * (k + 1) // 2 if inkernel else 0}
 
 
 def hoisted_gram_flops(k, nnz):
@@ -410,9 +458,8 @@ class Counts:
         self.d8, self.ps, self.gp = dense8, pallas_solve, gather_probe
 
     def reset(self):
-        self.d8.dense8_sweep_solve.launches = 0
         self.d8.sweep_instance_launches.clear()
-        for d in (self.d8.sweep_hoisted_launches, self.d8.gram_launches,
+        for d in (self.d8.sweep_launches, self.d8.gram_launches,
                   self.ps.solve_launches, self.gp.launches):
             for key in d:
                 d[key] = 0
@@ -423,23 +470,25 @@ class Counts:
         return {k: c for k, c in self.d8.sweep_instance_launches.items() if c}
 
     def read(self):
-        """#1 (fused), #2 by layout (fused_tight, fused_aligned), #3/#4
-        (gram_*), #5/#6 and their grouped variants #7 (solve_*), #8, #9
-        (probe_A, probe_B, probe_C)."""
+        """#1 (fused_inkernel), #2 by layout (fused_tight, fused_aligned),
+        #3/#4 (gram_*), each also on bf16 operands (*_bf16), #5/#6 and
+        their grouped variants #7 (solve_*), #8, #9 (probe_A, probe_B,
+        probe_C)."""
         sl = self.ps.solve_launches
-        return {"fused": self.d8.dense8_sweep_solve.launches,
-                **{"fused_" + n: c
-                   for n, c in self.d8.sweep_hoisted_launches.items()},
+        return {**{"fused_" + n: c for n, c in self.d8.sweep_launches.items()},
                 **{"gram_" + n: c for n, c in self.d8.gram_launches.items()},
                 **{"solve_" + n: c for n, c in sl.items() if n != "blast"},
                 "blast": sl["blast"],
                 **{"probe_" + n: c for n, c in self.gp.launches.items()}}
 
 
-COUNT_KEYS = ("fused", "fused_tight", "fused_aligned", "gram_inkernel",
-              "gram_hoisted", "solve_shared", "solve_peritem",
-              "solve_shared_grouped", "solve_peritem_grouped", "blast",
-              "probe_A", "probe_B", "probe_C")
+COUNT_KEYS = tuple(
+    f"{kernel}_{operand}{suffix}" for suffix in ("", "_bf16")
+    for kernel, operand in (("fused", "inkernel"), ("fused", "tight"),
+                            ("fused", "aligned"), ("gram", "inkernel"),
+                            ("gram", "hoisted"))) + (
+    "solve_shared", "solve_peritem", "solve_shared_grouped",
+    "solve_peritem_grouped", "blast", "probe_A", "probe_B", "probe_C")
 
 
 def launches(**nonzero):
@@ -613,7 +662,8 @@ def tri_system64(gram, lam, lam_tri_t, alpha, grouped=False):
 def d8_system64(codes, v_t, lam, alpha, orientation):
     """system64 of the megakernels (#1, #2) on one half-sweep's inputs:
     lam + alpha * G with the Gram of the rated entries in float64 (the
-    lower triangles, mirrored)."""
+    lower triangles, mirrored); on bf16 operands each product rounded to
+    bf16 first, as the kernels and the JAX package round it."""
     import torch
 
     f64 = torch.float64
@@ -621,6 +671,8 @@ def d8_system64(codes, v_t, lam, alpha, orientation):
     x = codes if orientation == "rows" else codes.t()
     v64 = v_t.to(f64)
     outer = (v64[:, None, :] * v64[None, :, :]).reshape(k * k, -1)
+    if v_t.dtype == torch.bfloat16:
+        outer = outer.to(torch.bfloat16).to(f64)   # exact products, rounded once
     lam64 = lam.to(f64)
 
     def system64(sl):
@@ -628,6 +680,63 @@ def d8_system64(codes, v_t, lam, alpha, orientation):
         a = torch.tril(lam64 + alpha * g)
         return a + a.mT - torch.diag_embed(a.diagonal(dim1=1, dim2=2))
     return system64
+
+
+def d8_rhs64(codes, v_t, prior_rhs, cs, cb, orientation, fold):
+    """[items, K] float64 rhs of the megakernels' systems on bf16 operands,
+    the prior's included: cs v.code + cb v.ind (#1), or with ``fold`` (#2)
+    code.bf16(cs v) + ind.bf16(cb v) (ops.dense8.fold_weights)."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    f64 = torch.float64
+    x = codes if orientation == "rows" else codes.t()
+    ind, cv = (x != 0).to(f64), x.to(f64)
+    if fold:
+        ws, wb = (w.to(f64) for w in d8.fold_weights(v_t, cs, cb))
+        rhs = cv @ ws.t() + ind @ wb.t()
+    else:
+        v = v_t.to(f64)
+        rhs = cs * (cv @ v.t()) + cb * (ind @ v.t())
+    return rhs + prior_rhs.to(f64).t()
+
+
+def bf16_library(codes, p_t, v_t, cs, cb, orientation, solve=None):
+    """The bf16 kernels' function as a library chain, their yardstick:
+    cuBLAS bf16 products with float32 sums (``torch.mm(..., out_dtype=
+    torch.float32)``) of the packed operand (built from v_t, rounded, for
+    #1/#3; p_t's valid rows for #2, its every row for #4) and the bf16
+    indicator, and of v_t and the bf16 codes (exact up to 256) for the
+    rhs.  ``solve`` (lam, prior_rhs, noise_t, alpha, layout): the
+    megakernel's rest, ops.pallas_solve.tri_combine and torch.linalg."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+    from bpmf_tpu_torch.ops import pallas_solve as ps
+
+    bf, f32 = torch.bfloat16, torch.float32
+    k = v_t.shape[0]
+    tv = k * (k + 1) // 2
+    x = codes if orientation == "rows" else codes.t()
+    ind, cv = (x != 0).to(bf), x.to(bf)
+    if p_t is None:
+        p = d8.packed_tri_t(v_t.float())[:tv].to(bf)
+    elif solve is not None:
+        p = p_t[torch.as_tensor(d8._layout_rows(k, solve[4])[0], device=p_t.device)]
+    else:
+        p = p_t
+    gram = torch.mm(p, ind.t(), out_dtype=f32)
+    rhs = (cs * torch.mm(v_t, cv.t(), out_dtype=f32)
+           + cb * torch.mm(v_t, ind.t(), out_dtype=f32))
+    if solve is None:
+        return gram, rhs
+    lam, prior_rhs, noise_t, alpha, _ = solve
+    chol = torch.linalg.cholesky_ex(ps.tri_combine(gram, lam, alpha)).L
+    y = torch.linalg.solve_triangular(chol, (rhs + prior_rhs).t()[..., None],
+                                      upper=False)
+    return torch.linalg.solve_triangular(
+        chol.mT, y + noise_t.t()[..., None], upper=True)[..., 0].t()
 
 
 def full_system64(prec):
@@ -1282,8 +1391,9 @@ def main():
         tv = k * (k + 1) // 2
         nnz = int((codes != 0).sum())
         p_rows = 0 if p_t is None else len(d8._layout_rows(k, layout)[0])
-        nbytes = codes.numel() * codes.element_size() + 4 * (
-            v_t.numel() + p_rows * v_t.shape[1] + k * k + k + 2 * k * items)
+        nbytes = (codes.numel() * codes.element_size()
+                  + v_t.element_size() * (v_t.numel() + p_rows * v_t.shape[1])
+                  + 4 * (k * k + k + 2 * k * items))
         gram = gram_flops if p_t is None else hoisted_gram_flops
         return nbytes, gram(k, nnz) + solve_flops(k, items) + 2 * tv * items
 
@@ -1370,7 +1480,7 @@ def main():
     sampler, mets, chunk_s, setup_s, n = drive(ml1m(K), counts, chunks, iters)
     done = chunks * iters
     assert sampler.users.route == sampler.movies.route == "fused"
-    assert n == launches(fused=2 * done), n
+    assert n == launches(fused_inkernel=2 * done), n
     rmse_avg = float(mets[-1].rmse_avg[-1])
     assert abs(rmse_avg - RMSE_AVG_JAX) <= RMSE_BAND, (
         f"rmse_avg {rmse_avg} outside {RMSE_AVG_JAX} +- {RMSE_BAND}")
@@ -1526,7 +1636,8 @@ def main():
             gram3 = fn(codes, None, v_t, cs, cb)
             g_bytes = codes.numel() * codes.element_size() + 4 * (
                 v_t.numel() + gram3[0].numel() + gram3[1].numel())
-            g_flops = gram_flops(k, int((codes != 0).sum()))
+            nnz = int((codes != 0).sum())
+            g_flops = gram_flops(k, nnz)
             record("gram_inkernel", k, orientation, gram3,
                    d8.dense8_gram_rhs_ref(codes, None, v_t, cs, cb, orientation),
                    lambda: fn(codes, None, v_t, cs, cb),
@@ -1541,7 +1652,7 @@ def main():
                    d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation),
                    lambda: fn(codes, p_t, v_t, cs, cb),
                    lambda: d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, cb, orientation),
-                   work=(g_bytes + 4 * p_t.numel(), g_flops),
+                   work=(g_bytes + 4 * p_t.numel(), hoisted_gram_flops(k, nnz)),
                    library_fn=lambda: gram_library(codes, p_t, v_t, cs, cb, orientation),
                    segments=d8.hoisted_plan(items, frozen, p_t.shape[0], k, None,
                                             d8._sm_count(codes.device)).segments,
@@ -1708,11 +1819,11 @@ def main():
                                 train, test, out=devnull, device="cuda")
             sampler, mets, chunk_s, setup_s, n = drive(make, counts, 1, prop_iters)
             assert (sampler.users.route, sampler.movies.route) == ("inkernel", "fused")
-            assert n == launches(fused=prop_iters, gram_inkernel=prop_iters,
+            assert n == launches(fused_inkernel=prop_iters, gram_inkernel=prop_iters,
                                  solve_peritem=prop_iters), n
             assert_finite(mets)
             err = check_first_iterations(make, mets[0], counts)
-            for key in ("fused", "gram_inkernel", "solve_peritem"):
+            for key in ("fused_inkernel", "gram_inkernel", "solve_peritem"):
                 total[key] += n[key]
             emit({"phase": "prop", "dataset": "ml-1m synth", "k": K,
                   "prop": "users", "strict_reference": strict,
@@ -1912,7 +2023,6 @@ def main():
               "rmse_avg": float(dmets[-1].rmse_avg[-1])})
         raise AssertionError(f"ml25m bucketed: rmse_avg {rmse_avg} outside "
                              f"{RMSE_AVG_ML25M_HALF} +- {RMSE_BAND}")
-    del btrain, btest
 
     # 13. ratings off the grid: fused dense (#5) and plain dense (#8)
     rng = np.random.default_rng(2024)
@@ -2026,15 +2136,15 @@ def main():
     sampler, mets, chunk_s, setup_s, n = drive(tall, counts, t_chunks, t_iters)
     routes = {"compounds": sampler.users.route, "proteins": sampler.movies.route}
     assert routes == {"compounds": "fused_hoisted", "proteins": "fused"}, routes
-    assert n == launches(fused=t_done, fused_tight=t_done), n
+    assert n == launches(fused_inkernel=t_done, fused_tight=t_done), n
     assert_finite(mets)
     peak = torch.cuda.max_memory_allocated()
     err = check_first_iterations(tall, mets[0], counts)
-    total["fused"] += n["fused"]
+    total["fused_inkernel"] += n["fused_inkernel"]
     total["fused_tight"] += n["fused_tight"]
     with env(BPMF_D8_PT="inkernel"):
         ref_s, rmets, rchunk_s, _, rn = drive(tall, counts, t_chunks, t_iters)
-    assert rn == launches(fused=2 * t_done), rn
+    assert rn == launches(fused_inkernel=2 * t_done), rn
     assert ref_s.users.route == ref_s.movies.route == "fused"
     del ref_s
     rmse_avg = float(mets[-1].rmse_avg[-1])
@@ -2126,7 +2236,7 @@ def main():
             ("prop", lambda: BPMF(Config(num_latent=K, burnin=2, nsims=g_iters,
                                          prop_u=prop), train, test, out=devnull,
                                   device="cuda"),
-             launches(fused=g_iters, gram_inkernel=g_iters,
+             launches(fused_inkernel=g_iters, gram_inkernel=g_iters,
                       solve_peritem_grouped=g_iters)),
             ("offgrid", offgrid(), launches(solve_shared_grouped=2 * g_iters)))
         for name, make, want_n in grouped_chains:
@@ -2136,7 +2246,7 @@ def main():
                 assert n == want_n, n
                 assert_finite(mets)
                 err = check_first_iterations(make, mets[0], counts)
-            for key in ("fused", "gram_inkernel", "solve_peritem_grouped",
+            for key in ("fused_inkernel", "gram_inkernel", "solve_peritem_grouped",
                         "solve_shared_grouped"):
                 total[key] += n[key]
             emit({"phase": "grouped", "chain": name, "k": K,
@@ -2296,9 +2406,9 @@ def main():
     # the chain, then profile_phases: 100 iterations of the full program
     # and of each variant (a warm chunk and 3 timed chunks of 25), with
     # nosolve on the split Gram (#3) and nomatmul on the split solve (#5)
-    assert n == launches(fused=2 * p_iters + 2 * 100 * 4, gram_inkernel=200,
+    assert n == launches(fused_inkernel=2 * p_iters + 2 * 100 * 4, gram_inkernel=200,
                          solve_shared=200), n
-    for key in ("fused", "gram_inkernel", "solve_shared"):
+    for key in ("fused_inkernel", "gram_inkernel", "solve_shared"):
         total[key] += n[key]
     text = log.getvalue()
     block = text[text.index("perf counters (hierarchical):"):].strip()
@@ -2317,9 +2427,9 @@ def main():
     del sampler
     for v, route, want_n in (("nomatmul", "inkernel", launches(solve_shared=50)),
                              ("nosolve", "inkernel", launches(gram_inkernel=50)),
-                             ("nohyper", "fused", launches(fused=50)),
-                             ("nonoise", "fused", launches(fused=50)),
-                             ("nopredict", "fused", launches(fused=50))):
+                             ("nohyper", "fused", launches(fused_inkernel=50)),
+                             ("nonoise", "fused", launches(fused_inkernel=50)),
+                             ("nopredict", "fused", launches(fused_inkernel=50))):
         sampler, mets, chunk_s, setup_s, n = drive(ml1m_p(ablate=v), counts, 1, 25)
         assert sampler.movies.route == sampler.users.route == route, v
         assert n == want_n, (v, n)
@@ -2334,7 +2444,7 @@ def main():
     for defer in ("off", "on"):
         sampler, mets, chunk_s, setup_s, n = drive(
             ml1m_p(defer_predict=defer), counts, 2, 20)
-        assert n == launches(fused=80), n
+        assert n == launches(fused_inkernel=80), n
         deferred[defer] = (mets, sampler.defer_group(20), chunk_s)
         del sampler
     for m_on, m_off in zip(deferred["on"][0], deferred["off"][0]):
@@ -2354,8 +2464,8 @@ def main():
         sampler = ml1m_p(output_dir=odir)()
         final = sampler.run()
         n = counts.read()
-        assert n == launches(fused=2 * p_iters), n
-        total["fused"] += n["fused"]
+        assert n == launches(fused_inkernel=2 * p_iters), n
+        total["fused_inkernel"] += n["fused_inkernel"]
         names = ("Pavg.sdm", "Pm2.sdm", "U-mu.ddm", "U-Lambda.ddm", "V-mu.ddm",
                  "V-Lambda.ddm")
         assert sorted(os.listdir(odir)) == sorted(names), os.listdir(odir)
@@ -2446,7 +2556,7 @@ def main():
                             gtrain, gtest, out=devnull, device="cuda")
 
     grid_rmse = {}
-    for route, kw, want_n in (("fused", {}, launches(fused=2 * g_done)),
+    for route, kw, want_n in (("fused", {}, launches(fused_inkernel=2 * g_done)),
                               ("fused dense", {"gram_impl": "dense"},
                                launches(solve_shared=2 * g_done))):
         sampler, mets, chunk_s, setup_s, n = drive(grid(**kw), counts,
@@ -2459,7 +2569,7 @@ def main():
         else:
             assert [(x.impl, x.route) for x in (sampler.movies, sampler.users)] == [
                 ("dense", "fused")] * 2
-        for key in ("fused", "solve_shared"):
+        for key in ("fused_inkernel", "solve_shared"):
             total[key] += n[key]
         grid_rmse[route] = float(mets[-1].rmse_avg[-1])
         emit({"phase": "int16", "chain": "1/32 grid", "route": route,
@@ -2479,7 +2589,7 @@ def main():
         runs[dev.type] = s3.run_chunk(3)
         n = counts.read()
         assert s3._codes.dtype == torch.int16
-        assert n == (launches(fused=6) if dev.type == "cuda" else launches()), n
+        assert n == (launches(fused_inkernel=6) if dev.type == "cuda" else launches()), n
     err = 0.0
     for got, want in zip(runs["cuda"], runs["cpu"]):
         assert np.isfinite(got).all(), got
@@ -2491,7 +2601,7 @@ def main():
 
     # the K=10 chain (the Julia reference's default) on #1 and on split
     k10 = {}
-    for solve, want_n in (("fused", launches(fused=2 * g_done)),
+    for solve, want_n in (("fused", launches(fused_inkernel=2 * g_done)),
                           ("split", launches(gram_inkernel=2 * g_done,
                                              solve_shared=2 * g_done))):
         with env(BPMF_D8_SOLVE=solve):
@@ -2503,7 +2613,7 @@ def main():
         assert sampler.users.route == sampler.movies.route == route
         assert n == want_n, (solve, n)
         assert_finite(mets)
-        for key in ("fused", "gram_inkernel", "solve_shared"):
+        for key in ("fused_inkernel", "gram_inkernel", "solve_shared"):
             total[key] += n[key]
         k10[solve] = float(mets[-1].rmse_avg[-1])
         emit({"phase": "int16", "chain": "k10", "dataset": "ml-1m synth",
@@ -2550,7 +2660,7 @@ def main():
 
     sampler, mets, line = wide_chain(
         ml1m40, w_chunks, w_iters, {"movies": "fused", "users": "fused"},
-        launches(fused=2 * w_done), {d8.sweep_instance_key(40, "inkernel"): 2 * w_done},
+        launches(fused_inkernel=2 * w_done), {d8.sweep_instance_key(40, "inkernel"): 2 * w_done},
         dataset="ml-1m synth", k=40)
     err = check_first_iterations(ml1m40, mets[0], counts)
     del sampler
@@ -2580,7 +2690,7 @@ def main():
 
     sampler, mets, line = wide_chain(
         chembl40, c_chunks, c_iters, {"movies": "fused", "users": "fused_hoisted"},
-        launches(fused=c_done, fused_tight=c_done),
+        launches(fused_inkernel=c_done, fused_tight=c_done),
         {d8.sweep_instance_key(40, "inkernel"): c_done,
          d8.sweep_instance_key(40, "tight"): c_done},
         dataset="chembl synth, 167000 x 360", k=40)
@@ -2601,7 +2711,7 @@ def main():
     # 44), #2 at K=24 (tight, capacity 24), K=10 and K=39 (aligned,
     # capacities 16 and 40)
     for k, knob, route, key, operand in (
-            (41, {}, "fused", "fused", "inkernel"),
+            (41, {}, "fused", "fused_inkernel", "inkernel"),
             (24, {"BPMF_D8_PT": "hoisted"}, "fused_hoisted", "fused_tight", "tight"),
             (10, {"BPMF_D8_SOLVE": "fused_aligned"}, "fused_aligned", "fused_aligned",
              "aligned"),
@@ -2635,12 +2745,222 @@ def main():
     for line in lines:
         emit({**line, "phase_s": reduce_s})
 
+    # 26. bf16 matmul inputs: #1-#4 on bf16 operands against plain (and the
+    # solves against the float64 draw of the same bf16 systems), then the
+    # anchored chains and one chain a bf16 instance at bf16
+    t26 = time.perf_counter()
+    bf = torch.bfloat16
+    cs26, cb26 = CS_BF16, CB_BF16
+    bf16_rows = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                        "library_ms": 0.0, "nbytes": 0, "flops": 0,
+                        "bf16_mma": 0, "bf16_vec": 0}
+                 for name in ("inkernel", "tight", "aligned", "gram_inkernel",
+                              "gram_hoisted")}
+
+    def bf16_record(name, r, nbytes, work, **info):
+        """One bf16 kernel against plain: a JSON line, and its times and
+        bound (``work``: bf16_gram_work's) summed into its kernels-line row
+        (rows + cols)."""
+        emit({"phase": "bf16", "kernel": name, **info, **r, **work,
+              **bound(nbytes, **work), **tag})
+        row = bf16_rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+        for key, v in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]),
+                       ("library_ms", r["library_ms"]), ("nbytes", nbytes),
+                       *work.items()):
+            row[key] += v
+
+    for i, orientation in enumerate(("rows", "cols")):
+        codes, v_t, lam, prior_rhs, noise_t = kernel_inputs(orientation, seed=260 + i)
+        v_b = v_t.to(bf)
+        for name in ("inkernel", "tight", "aligned"):
+            p_t, layout = None, "aligned"
+            if name != "inkernel":
+                p_t = d8.packed_tri_t(v_b.float(), aligned=name == "aligned").to(bf)
+                layout = name
+
+            def call():
+                return dense8_sweep_solve(codes, p_t, v_b, lam, prior_rhs, noise_t,
+                                          cs26, cb26, alpha, orientation, layout=layout)
+
+            def plain():
+                return dense8_sweep_solve_ref(codes, p_t, v_b, lam, prior_rhs, noise_t,
+                                              cs26, cb26, alpha, orientation, layout)
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, call())
+            want = plain()
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            worst, err64, kappa = solve_vs_f64(
+                d8_system64(codes, v_b, lam, alpha, orientation),
+                d8_rhs64(codes, v_b, prior_rhs, cs26, cb26, orientation,
+                         fold=p_t is not None),
+                noise_t.t(), [got.t(), want.t()])
+            r = {"max_abs_err": float((got - want).abs().max()),
+                 "ms": median_ms(call), "plain_ms": median_ms(plain),
+                 "library_ms": median_ms(lambda: bf16_library(
+                     codes, p_t, v_b, cs26, cb26, orientation,
+                     (lam, prior_rhs, noise_t, alpha, layout)))}
+            nbytes = sweep_work((codes, v_b, lam, prior_rhs, noise_t), p_t,
+                                layout)[0]
+            work = bf16_gram_work(K, int((codes != 0).sum()), v_b.shape[1],
+                                  p_t is None)
+            n_items = noise_t.shape[1]   # the combine and the solve, float32
+            work["flops"] += solve_flops(K, n_items) + K * (K + 1) * n_items
+            bf16_record(name, r, nbytes, work, orientation=orientation, k=K,
+                        shape=list(codes.shape), operands="bfloat16",
+                        instance=d8.sweep_instance_key(K, name, bf),
+                        tolerance=KERNEL_TOL, solve_bound=SOLVE_BOUND,
+                        err_over_bound=worst[0], plain_err_over_bound=worst[1],
+                        err_vs_f64=err64[0], max_kappa_f=kappa,
+                        bitwise_repeated=True)
+            assert worst[0] <= 1.0, (name, orientation, worst, err64)
+        # the split Gram at K=64 on bf16 operands
+        codes, v_t = kernel_inputs(orientation, seed=270 + i, k=64)[:2]
+        v_b = v_t.to(bf)
+        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+        for name in ("gram_inkernel", "gram_hoisted"):
+            p_t = d8.packed_tri_t(v_b.float()).to(bf) if name == "gram_hoisted" else None
+            got = fn(codes, p_t, v_b, cs26, cb26)
+            torch.cuda.synchronize()
+            again = fn(codes, p_t, v_b, cs26, cb26)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, cs26, cb26, orientation)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **KERNEL_TOL)
+            nnz = int((codes != 0).sum())
+            nbytes = (codes.numel() * codes.element_size()
+                      + 2 * (v_b.numel() + (0 if p_t is None else p_t.numel()))
+                      + 4 * (got[0].numel() + got[1].numel()))
+            work = bf16_gram_work(64, nnz, v_b.shape[1], p_t is None)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            r = {"max_abs_err": err,
+                 "ms": median_ms(lambda: fn(codes, p_t, v_b, cs26, cb26)),
+                 "plain_ms": median_ms(lambda: d8.dense8_gram_rhs_ref(
+                     codes, p_t, v_b, cs26, cb26, orientation)),
+                 "library_ms": median_ms(lambda: bf16_library(
+                     codes, p_t, v_b, cs26, cb26, orientation))}
+            bf16_record(name, r, nbytes, work, orientation=orientation, k=64,
+                        shape=list(codes.shape), operands="bfloat16",
+                        tolerance=KERNEL_TOL, bitwise_repeated=True)
+    # the dense routes' bf16 products (ops.update.matmul_acc): cuBLAS with
+    # out_dtype float32 against converting both operands and an SGEMM
+    g26 = torch.Generator(device="cuda").manual_seed(290)
+    a26 = torch.randn((4096, 6144), generator=g26, device="cuda").to(bf)
+    b26 = torch.randn((6144, 1024), generator=g26, device="cuda").to(bf)
+    exact = a26.double() @ b26.double()
+    probe26 = {}
+    for name, fn in (
+            ("mm_out_dtype", lambda: torch.mm(a26, b26, out_dtype=torch.float32)),
+            ("bmm_out_dtype",
+             lambda: torch.bmm(a26[None], b26[None], out_dtype=torch.float32)[0]),
+            ("converted_sgemm", lambda: a26.float() @ b26.float())):
+        probe26[name] = {"ms": median_ms(fn),
+                         "err_vs_f64": float((fn().double() - exact).abs().max())}
+    emit({"phase": "bf16", "probe": "matmul out_dtype",
+          "shape": [[4096, 6144], [6144, 1024]], **probe26, **tag})
+    del a26, b26, exact
+    # every other megakernel instance on bf16 operands: phase 3's WIDE
+    for name, k in WIDE:
+        args = kernel_inputs("rows", seed=280 + k, k=k)
+        v_b = args[1].to(bf)
+        p_t = (None if name == "inkernel" else
+               d8.packed_tri_t(v_b.float(), aligned=name == "aligned").to(bf))
+        layout = "aligned" if name == "inkernel" else name
+        got = dense8_sweep_solve(args[0], p_t, v_b, *args[2:], cs26, cb26, alpha,
+                                 "rows", layout=layout)
+        want = dense8_sweep_solve_ref(args[0], p_t, v_b, *args[2:], cs26, cb26,
+                                      alpha, "rows", layout)
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        emit({"phase": "bf16", "kernel": "dense8_sweep_solve", "operand": name,
+              "k": k, "instance": d8.sweep_instance_key(k, name, bf),
+              "max_abs_err": float((got - want).abs().max()),
+              "tolerance": KERNEL_TOL})
+    del args, codes, v_t, v_b, got, want
+
+    def bf16_chain(make, chunks_n, iters_n, routes, want, **info):
+        """A chain at bf16 between a reset and a read of the launch counts:
+        its routes, its launches (the bf16 instances only), finite
+        metrics; returns (sampler, metrics, its JSON line)."""
+        sampler, mets, chunk_s, setup_s, n = drive(make, counts, chunks_n, iters_n)
+        assert sampler._md == bf
+        got_routes = {s.name: s.route or s.impl for s in (sampler.movies, sampler.users)}
+        assert got_routes == routes, got_routes
+        assert n == want, n
+        assert_finite(mets)
+        for key, c in n.items():
+            total[key] = total.get(key, 0) + c
+        line = {"phase": "bf16", "matmul_dtype": "bfloat16", **info,
+                "routes": got_routes, "iterations": chunks_n * iters_n,
+                "launches": n, "rmse_avg": float(mets[-1].rmse_avg[-1]),
+                "rmse": float(mets[-1].rmse[-1]),
+                **per_iter_stats(sampler, chunk_s, iters_n), "setup_s": setup_s,
+                **tag}
+        return sampler, mets, line
+
+    # the anchored chains: ml-1m K=32 on #1, bucketed ml-1m, ml-25M half
+    bf16_anchor = {}
+    for chain, make, c_n, i_n, routes, want, anchor in (
+            ("ml-1m k32", ml1m(K, matmul_dtype="bfloat16"), chunks, iters,
+             {"movs": "fused", "users": "fused"}, launches(fused_inkernel_bf16=2 * done),
+             RMSE_AVG_JAX),
+            ("ml-1m k32 bucketed", ml1m(K, gram_impl="bucketed",
+                                        matmul_dtype="bfloat16"), chunks, iters,
+             {"movs": "bucketed", "users": "bucketed"}, launches(blast=2 * done),
+             RMSE_AVG_JAX),
+            ("ml-25M half bucketed", ml25m(gram_impl="bucketed",
+                                           matmul_dtype="bfloat16"),
+             b_chunks, b_iters, {"movs": "bucketed", "users": "bucketed"},
+             launches(blast=2 * b_chunks * b_iters), RMSE_AVG_ML25M_HALF)):
+        sampler, mets, line = bf16_chain(make, c_n, i_n, routes, want, chain=chain)
+        bf16_anchor[chain] = line["rmse_avg"]
+        emit({**line, "rmse_avg_jax_tpu_bf16": anchor, "band": RMSE_BAND})
+        del sampler
+        assert abs(line["rmse_avg"] - anchor) <= RMSE_BAND, (chain, line, anchor)
+    del btrain, btest
+    # one chain each for the other bf16 instances, 3 iterations against the
+    # plain chain: #2 in both layouts (K=32), #3 and #4 (the K=64 split
+    # route), and the off-grid fused dense chain (bf16 blocks, #5)
+    s_iters, s_chunks = 50, 2
+    s_done = s_iters * s_chunks
+    for chain, make, c_n, i_n, knob, routes, want in (
+            ("ml-1m k32 hoisted", ml1m(K, matmul_dtype="bfloat16"), s_chunks,
+             s_iters, {"BPMF_D8_PT": "hoisted"},
+             {"movs": "fused_hoisted", "users": "fused_hoisted"},
+             launches(fused_tight_bf16=2 * s_done)),
+            ("ml-1m k32 aligned", ml1m(K, matmul_dtype="bfloat16"), s_chunks,
+             s_iters, {"BPMF_D8_SOLVE": "fused_aligned"},
+             {"movs": "fused_aligned", "users": "fused_aligned"},
+             launches(fused_aligned_bf16=2 * s_done)),
+            ("ml-1m k64 split", ml1m(64, matmul_dtype="bfloat16"), s_chunks,
+             s_iters, {}, {"movs": "inkernel", "users": "inkernel"},
+             launches(gram_inkernel_bf16=2 * s_done, solve_shared=2 * s_done)),
+            ("ml-1m k64 split hoisted", ml1m(64, matmul_dtype="bfloat16"),
+             s_chunks, s_iters, {"BPMF_D8_PT": "hoisted"},
+             {"movs": "hoisted", "users": "hoisted"},
+             launches(gram_hoisted_bf16=2 * s_done, solve_shared=2 * s_done)),
+            ("ml-1m k32 off grid", offgrid(matmul_dtype="bfloat16"), o_chunks,
+             o_iters, {}, {"movs": "fused", "users": "fused"},
+             launches(solve_shared=2 * o_iters * o_chunks))):
+        with env(**knob):
+            sampler, mets, line = bf16_chain(make, c_n, i_n, routes, want,
+                                             chain=chain, knob=knob)
+            err = check_first_iterations(make, mets[0], counts)
+        line.update(first_3_vs_plain_max_abs_err=err, tolerance=CHAIN_TOL)
+        if chain == "ml-1m k32 off grid":
+            line.update(float32_rmse_avg=o_rmse["fused"], band=BF16_BAND)
+            assert abs(line["rmse_avg"] - o_rmse["fused"]) <= BF16_BAND, line
+        emit(line)
+        del sampler
+    emit({"phase": "bf16", "phase_s": time.perf_counter() - t26, **tag})
+
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"
 
     def entry(name, source, replaces, key, numbers, library_ms=None):
         numbers = dict(numbers)
-        work = bound(numbers.pop("nbytes"), numbers.pop("flops"))
+        work = bound(numbers.pop("nbytes"), numbers.pop("flops"),
+                     numbers.pop("bf16_mma", 0), numbers.pop("bf16_vec", 0))
         library_ms = numbers.pop("library_ms", library_ms)
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": total[key], **numbers,
@@ -2659,9 +2979,24 @@ def main():
             "dense8_sweep_solve.cu",
             "bpmf_tpu/ops/dense8.py:" + ("580" if name == "inkernel" else "509"),
             inst, {**result[(name, k)], "k": k, "instance": inst}))
+    # the bf16 instances' rows, each beside its float32 row
+    bf16_entries = [
+        entry(f"dense8_sweep_solve ({what}, bf16 operands)",
+              "dense8_sweep_solve_bf16.cu", "bpmf_tpu/ops/dense8.py:" + line,
+              key, {**bf16_rows[name], "k": K, "operands": "bfloat16"})
+        for name, what, line, key in (
+            ("inkernel", "in-kernel products", "580", "fused_inkernel_bf16"),
+            ("tight", "hoisted operand, tight", "509", "fused_tight_bf16"),
+            ("aligned", "hoisted operand, aligned", "509", "fused_aligned_bf16"))]
+    bf16_entries += [
+        entry(f"dense8_gram_rhs ({what}, bf16 operands)", "dense8_gram_rhs_bf16.cu",
+              "bpmf_tpu/ops/dense8.py:" + line, name + "_bf16",
+              {**bf16_rows[name], "k": 64, "operands": "bfloat16"})
+        for name, what, line in (("gram_inkernel", "in-kernel products", "233"),
+                                 ("gram_hoisted", "hoisted operand", "339"))]
     emit({"kernels": [
         entry("dense8_sweep_solve (in-kernel products)", "dense8_sweep_solve.cu",
-              "bpmf_tpu/ops/dense8.py:580", "fused", result["inkernel"]),
+              "bpmf_tpu/ops/dense8.py:580", "fused_inkernel", result["inkernel"]),
         entry("dense8_sweep_solve (hoisted operand, tight)",
               "dense8_sweep_solve.cu", "bpmf_tpu/ops/dense8.py:509",
               "fused_tight", result["tight"]),
@@ -2703,6 +3038,7 @@ def main():
                                        "rows of a slot, four summing warps"},
               library_ms=library_ms),
         *wide_rows,
+        *bf16_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

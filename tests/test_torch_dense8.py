@@ -8,6 +8,7 @@ import torch
 import jax.numpy as jnp
 
 from bpmf_tpu.ops.dense8 import dense8_sweep_solve as jax_sweep_solve
+from bpmf_tpu_torch.ops import dense8 as d8
 from bpmf_tpu_torch.ops.dense8 import dense8_sweep_solve
 from tests.test_torch_kernel import ALPHA, CB, CS, CS16, _inputs
 
@@ -36,9 +37,9 @@ def test_sweep_solve_matches_jax(k, orientation, code_dtype):
     want = jax_sweep_solve(
         jnp.asarray(args[0]), None, *(jnp.asarray(a) for a in args[1:]),
         cs, CB, ALPHA, orientation, interpret=True)
-    launches = dense8_sweep_solve.launches
+    launches = d8.sweep_launches["inkernel"]
     t = [torch.from_numpy(a) for a in args]
     got = dense8_sweep_solve(t[0], None, *t[1:], cs, CB, ALPHA, orientation)
-    assert dense8_sweep_solve.launches == launches  # CPU: plain version
+    assert d8.sweep_launches["inkernel"] == launches  # CPU: plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)

@@ -87,12 +87,12 @@ def test_hoisted_sweep_solve_matches_jax(k, orientation, layout, fold,
         *(jnp.asarray(a) for a in (v_t, lam, prior_rhs, noise_t)),
         cs, CB, ALPHA, orientation, layout=layout, interpret=True)
     v = torch.from_numpy(v_t)
-    launches = dict(d8.sweep_hoisted_launches)
+    launches = dict(d8.sweep_launches)
     got = d8.dense8_sweep_solve(
         torch.from_numpy(codes), d8.packed_tri_t(v, aligned=aligned), v,
         *(torch.from_numpy(a) for a in (lam, prior_rhs, noise_t)),
         cs, CB, ALPHA, orientation, layout=layout)
-    assert d8.sweep_hoisted_launches == launches  # CPU: plain version
+    assert d8.sweep_launches == launches  # CPU: plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -90,10 +90,10 @@ def test_kernel_matches_plain_on_card(cuda, k, orientation):
     """f32 with another summation order, amplified by the Cholesky: 1e-3."""
     args = [torch.from_numpy(a).to(cuda)
             for a in _inputs(1024, 1536, k, orientation, seed=3, density=0.05)]
-    launches = dense8_sweep_solve.launches
+    launches = d8.sweep_launches["inkernel"]
     got = dense8_sweep_solve(args[0], None, *args[1:], CS, CB, ALPHA, orientation)
     torch.cuda.synchronize()
-    assert dense8_sweep_solve.launches == launches + 1
+    assert d8.sweep_launches["inkernel"] == launches + 1
     want = dense8_sweep_solve_ref(args[0], None, *args[1:], CS, CB, ALPHA,
                                   orientation)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
@@ -120,11 +120,11 @@ def test_hoisted_kernel_matches_plain_on_card(cuda, k, orientation, layout,
     pad[rows] = False
     p_nan = p_t.clone()
     p_nan[pad] = float("nan")
-    launches = dict(d8.sweep_hoisted_launches)
+    launches = dict(d8.sweep_launches)
     got = dense8_sweep_solve(args[0], p_nan, *args[1:], cs, CB, ALPHA,
                              orientation, layout=layout)
     torch.cuda.synchronize()
-    assert d8.sweep_hoisted_launches[layout] == launches[layout] + 1
+    assert d8.sweep_launches[layout] == launches[layout] + 1
     want = dense8_sweep_solve_ref(args[0], p_t, *args[1:], cs, CB, ALPHA,
                                   orientation, layout)
     assert torch.isfinite(got).all()
@@ -203,10 +203,10 @@ def test_kernel_capacities_and_int16_on_card(cuda, k, code_dtype, orientation):
     args = [torch.from_numpy(a).to(cuda)
             for a in _inputs(1024, 1536, k, orientation, seed=k + 1,
                              density=0.05, code_dtype=code_dtype)]
-    launches = dense8_sweep_solve.launches
+    launches = d8.sweep_launches["inkernel"]
     got = dense8_sweep_solve(args[0], None, *args[1:], cs, CB, ALPHA, orientation)
     torch.cuda.synchronize()
-    assert dense8_sweep_solve.launches == launches + 1
+    assert d8.sweep_launches["inkernel"] == launches + 1
     assert tuple(got.shape) == (k, args[4].shape[1])
     want = dense8_sweep_solve_ref(args[0], None, *args[1:], cs, CB, ALPHA,
                                   orientation)
@@ -243,7 +243,7 @@ def test_int16_codes_out_of_range_on_card(cuda, orientation):
             torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
     torch.cuda.synchronize()
     n = {key: c - before[key] for key, c in _launches().items() if c - before[key]}
-    assert n == {"fused": 1, "fused_tight": 1, "fused_aligned": 1,
+    assert n == {"fused_inkernel": 1, "fused_tight": 1, "fused_aligned": 1,
                  "gram_inkernel": 1, "gram_hoisted": 1}, n
 
 
@@ -320,12 +320,12 @@ def test_kernel_skewed_segments_on_card(cuda, k, orientation, code_dtype,
                                     code_dtype=code_dtype)]
     want = dense8_sweep_solve_ref(args[0], None, *args[1:], cs, CB, ALPHA,
                                   orientation)
-    launches = dense8_sweep_solve.launches
+    launches = d8.sweep_launches["inkernel"]
     _check_segments(
         lambda: dense8_sweep_solve(args[0], None, *args[1:], cs, CB, ALPHA,
                                    orientation, max_degree=4096),
         want, 4096, monkeypatch)
-    assert dense8_sweep_solve.launches == launches + 7
+    assert d8.sweep_launches["inkernel"] == launches + 7
 
 
 @pytest.mark.cuda
@@ -351,12 +351,12 @@ def test_hoisted_kernel_skewed_segments_on_card(cuda, orientation, layout,
     p_nan[pad] = float("nan")
     want = dense8_sweep_solve_ref(args[0], p_t, *args[1:], cs, CB, ALPHA,
                                   orientation, layout)
-    launches = dict(d8.sweep_hoisted_launches)
+    launches = dict(d8.sweep_launches)
     _check_segments(
         lambda: dense8_sweep_solve(args[0], p_nan, *args[1:], cs, CB, ALPHA,
                                    orientation, layout=layout, max_degree=4096),
         want, 4096, monkeypatch)
-    assert d8.sweep_hoisted_launches[layout] == launches[layout] + 7
+    assert d8.sweep_launches[layout] == launches[layout] + 7
 
 
 @pytest.mark.cuda
@@ -376,9 +376,9 @@ def test_chain_on_card_matches_cpu(cuda):
         s = BPMF(Config(num_latent=32, nsims=3, burnin=1), train, test,
                  out=open(os.devnull, "w"), device=dev,
                  draws=HostDraws(42, dev))
-        launches = dense8_sweep_solve.launches
+        launches = d8.sweep_launches["inkernel"]
         runs[dev.type] = s.run_chunk(3)
-        assert dense8_sweep_solve.launches - launches == (
+        assert d8.sweep_launches["inkernel"] - launches == (
             6 if dev.type == "cuda" else 0)
     for got, want in zip(runs["cuda"], runs["cpu"]):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
@@ -405,6 +405,49 @@ def test_gram_kernel_matches_plain_on_card(cuda, k, code_dtype, orientation, pt)
     assert d8.gram_launches[pt] == launches + 1
     want = d8.dense8_gram_rhs_ref(codes, p_t, v_t, cs, CB, orientation)
     for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,operand", [(16, "inkernel"), (32, "inkernel"),
+                                       (40, "inkernel"), (32, "tight"),
+                                       (24, "tight"), (32, "aligned"),
+                                       (39, "aligned"), (64, "gram_inkernel"),
+                                       (79, "gram_inkernel"), (64, "gram_hoisted")])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+def test_bf16_kernels_match_plain_on_card(cuda, k, operand, orientation):
+    """#1-#4 on bf16 operands (their bf16 instances, counted apart from the
+    float32 ones; cs and cb that bf16 does not hold) against their plain
+    versions at 1e-3, twice bitwise equal."""
+    bf = torch.bfloat16
+    codes, v_t, lam, prior_rhs, noise_t = (
+        torch.from_numpy(a).to(cuda)
+        for a in _inputs(1024, 1536, k, orientation, seed=k + 5, density=0.05))
+    v_b = v_t.to(bf)
+    cs, cb = 0.7, -1.3
+    before = (dict(d8.sweep_launches), dict(d8.gram_launches))
+    if operand.startswith("gram"):
+        p_t = d8.packed_tri_t(v_b.float()).to(bf) if operand == "gram_hoisted" else None
+        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+        got, again = (fn(codes, p_t, v_b, cs, cb) for _ in range(2))
+        want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, cs, cb, orientation)
+        key = operand.removeprefix("gram_")
+        assert d8.gram_launches[key + "_bf16"] == before[1][key + "_bf16"] + 2
+        assert d8.gram_launches[key] == before[1][key]
+    else:
+        p_t = (None if operand == "inkernel" else
+               d8.packed_tri_t(v_b.float(), aligned=operand == "aligned").to(bf))
+        layout = "aligned" if operand == "inkernel" else operand
+        got, again = ((dense8_sweep_solve(codes, p_t, v_b, lam, prior_rhs, noise_t,
+                                          cs, cb, ALPHA, orientation, layout=layout),)
+                      for _ in range(2))
+        want = (dense8_sweep_solve_ref(codes, p_t, v_b, lam, prior_rhs, noise_t,
+                                       cs, cb, ALPHA, orientation, layout),)
+        assert d8.sweep_launches[operand + "_bf16"] == before[0][operand + "_bf16"] + 2
+        assert d8.sweep_launches[operand] == before[0][operand]
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
 
 
@@ -624,8 +667,7 @@ def test_solve_kernel_matches_plain_on_card(cuda, k, peritem):
 
 def _launches():
     """Every kernel wrapper's launch count, by name."""
-    return {"fused": dense8_sweep_solve.launches,
-            **{f"fused_{n}": c for n, c in d8.sweep_hoisted_launches.items()},
+    return {**{f"fused_{n}": c for n, c in d8.sweep_launches.items()},
             **{f"gram_{n}": c for n, c in d8.gram_launches.items()},
             **{("" if n == "blast" else "solve_") + n: c
                for n, c in ps.solve_launches.items()}}
@@ -696,7 +738,7 @@ def test_prop_chain_on_card_matches_cpu(cuda, tmp_path, strict):
     write_matrix(lam_f, lam.transpose(1, 2, 0).reshape(k * k, num, order="F"))
     counts = _card_vs_cpu(cuda, k, prop_u=f"{mu_f},{lam_f}",
                           strict_reference=strict)
-    assert counts == {"fused": 3, "gram_inkernel": 3, "solve_peritem": 3}
+    assert counts == {"fused_inkernel": 3, "gram_inkernel": 3, "solve_peritem": 3}
 
 
 @pytest.mark.cuda
@@ -704,13 +746,13 @@ def test_k10_runs_on_card(cuda):
     """K=10 (the Julia reference's default) takes the megakernel, on its
     capacity 16."""
     counts = _card_vs_cpu(cuda, 10)
-    assert counts == {"fused": 6}
+    assert counts == {"fused_inkernel": 6}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,knob,want", [
-    (16, {}, {"fused": 6}),
-    (10, {}, {"fused": 6}),
+    (16, {}, {"fused_inkernel": 6}),
+    (10, {}, {"fused_inkernel": 6}),
     (32, {"BPMF_D8_PT": "hoisted"}, {"fused_tight": 6}),
     (64, {}, {"gram_inkernel": 6, "solve_shared": 6}),
     (64, {"BPMF_D8_PT": "hoisted"}, {"gram_hoisted": 6, "solve_shared": 6}),
@@ -842,8 +884,8 @@ def test_hoisted_chain_on_card_matches_cpu(cuda, knob, want, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,knob,want", [
-    (40, {}, {"fused": 6}),
-    (33, {}, {"fused": 6}),
+    (40, {}, {"fused_inkernel": 6}),
+    (33, {}, {"fused_inkernel": 6}),
     (40, {"BPMF_D8_PT": "hoisted"}, {"fused_tight": 6}),
     (24, {"BPMF_D8_PT": "hoisted"}, {"fused_tight": 6}),
     (39, {"BPMF_D8_SOLVE": "fused_aligned"}, {"fused_aligned": 6}),
@@ -885,7 +927,7 @@ def test_chembl_k40_heavy_items_to_float64_on_card(cuda):
     mets = s.run_chunk(5)
     assert np.isfinite(mets.rmse).all()
     n = {key: c - before[key] for key, c in _launches().items() if c - before[key]}
-    assert n == {"fused": 5, "fused_tight": 5}, n
+    assert n == {"fused_inkernel": 5, "fused_tight": 5}, n
     codes, cs, cb, alpha = s._codes, s._d8_cs, s._d8_cb, s.cfg.alpha
     for orientation, side, state, frozen in (
             ("rows", s.users, s.state_u, s.state_m),
@@ -913,7 +955,7 @@ def test_chembl_k40_heavy_items_to_float64_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,want", [
-    ("split_prop", {"fused": 3, "gram_inkernel": 3, "solve_peritem_grouped": 3}),
+    ("split_prop", {"fused_inkernel": 3, "gram_inkernel": 3, "solve_peritem_grouped": 3}),
     ("fused_dense", {"solve_shared_grouped": 6}),
 ])
 def test_grouped_chain_on_card_matches_cpu(cuda, tmp_path, case, want,
