@@ -1,7 +1,7 @@
 // dense8 Gram and rhs for Hopper (sm_90a): the first stage of the split
-// pipeline.  The template, built once a library per operand type by
-// dense8_gram_rhs.cu (float) and dense8_gram_rhs_bf16.cu (bf16 matmul
-// inputs).
+// pipeline on float32 operands, built by dense8_gram_rhs.cu.  On bf16
+// operands (Config.matmul_dtype = "bfloat16") the same function runs on the
+// tensor cores instead, dense over the code tiles: dense8_gram_mma.cu.
 //
 // Replaces the TPU kernels bpmf_tpu/ops/dense8.py:233 _kernel_inpt (packed
 // products built in the kernel, launched at :287) and :339 _kernel (packed
@@ -97,16 +97,6 @@
 // one such block fills an SM, and its tile staging, listing and ring
 // barriers alone took about as long as this kernel.  The partials of
 // S > 1 are a round trip through HBM (S x items x T floats).
-//
-// bf16 operands (Config.matmul_dtype = "bfloat16"; a library of their
-// own): v and p are bf16, the sums f32.  #3 stages v's rated rows as bf16
-// (8-byte cp.async pieces) and rounds each product v_i v_j to bf16 before
-// its f32 add, as the TPU kernel's p = pa * pb in bf16; its rhs weighs v
-// by cs*code + cb in f32.  #4 reads p as bf16, half the bytes of its bound,
-// and weighs each rating's v by code*bf16(cs v) + bf16(cb v), the TPU
-// kernel's default fold (cs, cb rounded to bf16 first), up to the order of
-// the f32 sums.  Pieces stay 4 entries (8 bytes), so t_out, the rows and
-// the alignment rules are those of f32.
 
 #pragma once
 
@@ -122,7 +112,6 @@ using bpmf::cp_async;
 using bpmf::cp_async_commit;
 using bpmf::cp_async_wait;
 using bpmf::gram4;
-using bpmf::gram_x;
 using bpmf::issue_tile;
 using bpmf::kFull;
 using bpmf::kItemsPerBlock;
@@ -131,9 +120,6 @@ using bpmf::ldg1;
 using bpmf::ldg4;
 using bpmf::load_piece;
 using bpmf::piece_xs;
-using bpmf::round_bf16;
-using bpmf::to_float;
-using bpmf::x_float;
 
 constexpr int kMaxK = 80;      // the dense8 gate admits K <= 79
 constexpr int kThreads = bpmf::kStageThreads;
@@ -157,15 +143,15 @@ struct GramArgs {
 };
 
 // Dynamic shared memory of #3: two code stages, the per-warp hit lists,
-// the per-warp rings of v rows (of the operand type V).
-template <typename T, typename V>
+// the per-warp rings of v rows.
+template <typename T>
 struct GramSmem {
   static constexpr int kStage = kItemsPerBlock * kTile;  // codes per stage
   static constexpr int kHitsOff = 2 * kStage * (int)sizeof(T);
   static constexpr int kRingOff = kHitsOff + kItemsPerBlock * kTile * 2;
   static_assert(kRingOff % 16 == 0, "16-byte aligned rings");
   static constexpr size_t bytes(int kv) {
-    return kRingOff + sizeof(V) * kItemsPerBlock * 2 * kBatch * kv;
+    return kRingOff + sizeof(float) * kItemsPerBlock * 2 * kBatch * kv;
   }
 };
 
@@ -178,18 +164,18 @@ __device__ __forceinline__ int tight_row(int i, int j, int k) {
 // rated entries in order, bring their rows of v through the warp's ring,
 // and hand each staged row and its rhs weight to on_row(row, w), in the
 // order of the frozen axis.
-template <typename T, typename V, typename OnRow>
+template <typename T, typename OnRow>
 __device__ __forceinline__ void for_rated_rows(const GramArgs& a, OnRow& on_row) {
-  using L = GramSmem<T, V>;
+  using L = GramSmem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int kv = a.kv;
   T* stage = reinterpret_cast<T*>(smem);
   uint16_t* hits = reinterpret_cast<uint16_t*>(smem + L::kHitsOff) + warp * kTile;
-  V* ring = reinterpret_cast<V*>(smem + L::kRingOff) + warp * 2 * kBatch * kv;
+  float* ring = reinterpret_cast<float*>(smem + L::kRingOff) + warp * 2 * kBatch * kv;
   const T* codes = static_cast<const T*>(a.codes);
-  const V* v = static_cast<const V*>(a.v);
+  const float* v = static_cast<const float*>(a.v);
   const int item0 = blockIdx.x * kItemsPerBlock;
   const int t0 = blockIdx.y * a.tiles_per_seg;
   const int t1 = min(a.n_tiles, t0 + a.tiles_per_seg);
@@ -223,11 +209,11 @@ __device__ __forceinline__ void for_rated_rows(const GramArgs& a, OnRow& on_row)
     const int pieces = kv / 4;  // 4-entry pieces per row
     auto issue_rows = [&](int b, int sb) {
       const int nb = min(kBatch, count - b);
-      V* dst = ring + sb * kBatch * kv;
+      float* dst = ring + sb * kBatch * kv;
       for (int c = lane; c < nb * pieces; c += 32) {
         const int s = c / pieces, piece = c - s * pieces;
-        cp_async<bpmf::kPieceBytes<V>>(dst + s * kv + 4 * piece,
-                                 v + (size_t)(n0 + hits[b + s]) * kv + 4 * piece);
+        cp_async<16>(dst + s * kv + 4 * piece,
+                     v + (size_t)(n0 + hits[b + s]) * kv + 4 * piece);
       }
     };
     if (count > 0) {
@@ -244,7 +230,7 @@ __device__ __forceinline__ void for_rated_rows(const GramArgs& a, OnRow& on_row)
         cp_async_wait<0>();
       }
       __syncwarp();
-      const V* rb = ring + sb * kBatch * kv;
+      const float* rb = ring + sb * kBatch * kv;
       const int nb = min(kBatch, count - b);
       for (int s = 0; s < nb; ++s)
         on_row(rb + s * kv,
@@ -312,19 +298,18 @@ __device__ __forceinline__ void finish(const GramArgs& a, int item) {
 // (group r holds row lane + 32r, columns 0 .. min(KP, 32(r+1)) - 1), as the
 // megakernel forms its Gram: each staged row gives the lane its own
 // entries by two scalar reads and every column by 4-entry broadcasts.  v's
-// rows are KP entries of type V, zero past K.
-template <typename V, int KP>
+// rows are KP entries, zero past K.
+template <int KP>
 struct RowSums {
   static constexpr int R = (KP + 31) / 32;
   float g[R][KP], r[R];
   int lane;
-  __device__ __forceinline__ void operator()(const V* row, float w) {
-    using X = decltype(gram_x(row));
-    X x[R];
+  __device__ __forceinline__ void operator()(const float* row, float w) {
+    float x[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      x[q] = lane + 32 * q < KP ? gram_x(row + lane + 32 * q) : X(0);
-      r[q] = fmaf(w, x_float(x[q]), r[q]);
+      x[q] = lane + 32 * q < KP ? row[lane + 32 * q] : 0.f;
+      r[q] = fmaf(w, x[q], r[q]);
     }
 #pragma unroll
     for (int j4 = 0; j4 < KP / 4; ++j4) {
@@ -336,13 +321,13 @@ struct RowSums {
   }
 };
 
-template <typename T, typename V, int KP>
+template <typename T, int KP>
 __global__ void __launch_bounds__(kThreads, 2)
 gram_rhs_rows(const GramArgs a) {
-  constexpr int R = RowSums<V, KP>::R;
+  constexpr int R = RowSums<KP>::R;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kItemsPerBlock + (threadIdx.x >> 5);
-  RowSums<V, KP> acc;
+  RowSums<KP> acc;
   acc.lane = lane;
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -350,7 +335,7 @@ gram_rhs_rows(const GramArgs a) {
 #pragma unroll
     for (int j = 0; j < KP; ++j) acc.g[q][j] = 0.f;
   }
-  for_rated_rows<T, V>(a, acc);
+  for_rated_rows<T>(a, acc);
   const int k = a.k;
   float* dst = segment_gram(a, item);
   float* rdst = segment_rhs(a, item);
@@ -369,22 +354,22 @@ gram_rhs_rows(const GramArgs a) {
 // 64 < K <= 79: the lanes own 4x4 tiles of the lower triangle (M tiles a
 // lane, 16 accumulators each): each staged row feeds a tile's 16 FMAs from
 // two 4-entry reads.  v's rows are roundup(K, 4) entries, zero past K.
-template <typename V, int M>
+template <int M>
 struct TileSums {
   float acc[M][16];
   float r[3];  // rhs entries lane, lane + 32, lane + 64
   int xo[M], yo[M];
   bool tile_live[M];
   int lane, k;
-  __device__ __forceinline__ void operator()(const V* row, float w) {
+  __device__ __forceinline__ void operator()(const float* row, float w) {
 #pragma unroll
     for (int q = 0; q < 3; ++q)
-      if (lane + 32 * q < k) r[q] = fmaf(w, to_float(row[lane + 32 * q]), r[q]);
+      if (lane + 32 * q < k) r[q] = fmaf(w, row[lane + 32 * q], r[q]);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       if (!tile_live[m]) continue;
       const auto y = load_piece(row + 4 * yo[m]);
-      decltype(gram_x(row)) xs[4];
+      float xs[4];
       piece_xs(load_piece(row + 4 * xo[m]), xs);
 #pragma unroll
       for (int p = 0; p < 4; ++p) gram4(xs[p], y, &acc[m][4 * p]);
@@ -392,13 +377,13 @@ struct TileSums {
   }
 };
 
-template <typename T, typename V, int M>
+template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
 gram_rhs_tiles(const GramArgs a) {
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kItemsPerBlock + (threadIdx.x >> 5);
   const int k = a.k;
-  TileSums<V, M> t;
+  TileSums<M> t;
   t.lane = lane;
   t.k = k;
   // slot m is tile s = lane + 32m of the lower triangle of 4x4 tiles (row
@@ -419,7 +404,7 @@ gram_rhs_tiles(const GramArgs a) {
     for (int q = 0; q < 16; ++q) t.acc[m][q] = 0.f;
   }
   t.r[0] = t.r[1] = t.r[2] = 0.f;
-  for_rated_rows<T, V>(a, t);
+  for_rated_rows<T>(a, t);
   float* dst = segment_gram(a, item);
   float* rdst = segment_rhs(a, item);
 #pragma unroll
@@ -457,25 +442,25 @@ int launch_gram(Kernel kernel, dim3 grid, size_t bytes, size_t max_bytes,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename V, int KP>
+template <typename T, int KP>
 int launch_rows(dim3 grid, cudaStream_t s, const GramArgs& a) {
   static int configured = -1;
   if (a.kv != KP) return (int)cudaErrorInvalidValue;
-  return launch_gram(gram_rhs_rows<T, V, KP>, grid, GramSmem<T, V>::bytes(KP),
-                     GramSmem<T, V>::bytes(KP), s, a, configured);
+  return launch_gram(gram_rhs_rows<T, KP>, grid, GramSmem<T>::bytes(KP),
+                     GramSmem<T>::bytes(KP), s, a, configured);
 }
 
-template <typename T, typename V>
+template <typename T>
 int dispatch_inkernel(dim3 grid, cudaStream_t s, const GramArgs& a) {
-  if (a.k <= 16) return launch_rows<T, V, 16>(grid, s, a);
-  if (a.k <= 32) return launch_rows<T, V, 32>(grid, s, a);
-  if (a.k <= 48) return launch_rows<T, V, 48>(grid, s, a);
-  if (a.k <= 64) return launch_rows<T, V, 64>(grid, s, a);
+  if (a.k <= 16) return launch_rows<T, 16>(grid, s, a);
+  if (a.k <= 32) return launch_rows<T, 32>(grid, s, a);
+  if (a.k <= 48) return launch_rows<T, 48>(grid, s, a);
+  if (a.k <= 64) return launch_rows<T, 64>(grid, s, a);
   // 210 tiles of the padded triangle at K=79
   static int configured = -1;
   if (a.kv != (a.k + 3) / 4 * 4) return (int)cudaErrorInvalidValue;
-  return launch_gram(gram_rhs_tiles<T, V, 7>, grid, GramSmem<T, V>::bytes(a.kv),
-                     GramSmem<T, V>::bytes(kMaxK), s, a, configured);
+  return launch_gram(gram_rhs_tiles<T, 7>, grid, GramSmem<T>::bytes(a.kv),
+                     GramSmem<T>::bytes(kMaxK), s, a, configured);
 }
 
 // -- #4: hoisted operand ---------------------------------------------------
@@ -483,7 +468,7 @@ int dispatch_inkernel(dim3 grid, cudaStream_t s, const GramArgs& a) {
 struct HoistArgs {
   const void* codes;
   int n_cols, rows, n_tiles, tiles_per_seg, items, k;
-  const void* v;     // [n_frozen, k], of the operand type
+  const void* v;     // [n_frozen, k]
   const void* p;     // [n_frozen, 4 t4]: the packed rows, 16-byte aligned
   int t4;            // 4-entry pieces of a packed row (t_out / 4)
   float cs, cb;
@@ -516,7 +501,7 @@ __device__ __forceinline__ void add4(float4& s, const float4 x) {
 // and its rhs term is K FMAs on v's row (lanes over k).  Then the sums go
 // to the outputs (S = 1) or the segment's partial, whose last block sums
 // the S partials in segment order.
-template <typename T, typename V, int NV>
+template <typename T, int NV>
 __global__ void __launch_bounds__(kThreads, NV <= 17 ? 2 : 1)
 gram_rhs_hoisted(const HoistArgs a) {
   using L = HoistSmem<T>;
@@ -526,14 +511,11 @@ gram_rhs_hoisted(const HoistArgs a) {
   T* stage = reinterpret_cast<T*>(smem);
   uint16_t* hits = reinterpret_cast<uint16_t*>(smem + L::kHitsOff) + warp * kTile;
   const T* codes = static_cast<const T*>(a.codes);
-  const V* v = static_cast<const V*>(a.v);
-  const V* p = static_cast<const V*>(a.p);
+  const float* v = static_cast<const float*>(a.v);
+  const float* p = static_cast<const float*>(a.p);
   const int item0 = blockIdx.x * kItemsPerBlock;
   const int item = item0 + warp;
   const int k = a.k, t4 = a.t4;
-  // bf16: the fold's weights code*bf16(cs v) + bf16(cb v), cs and cb
-  // rounded to bf16
-  const float cs_b = round_bf16(a.cs), cb_b = round_bf16(a.cb);
   const int t0 = blockIdx.y * a.tiles_per_seg;
   const int t1 = min(a.n_tiles, t0 + a.tiles_per_seg);
   float4 acc[NV];
@@ -569,22 +551,15 @@ gram_rhs_hoisted(const HoistArgs a) {
     for (int e = 0; e < count; ++e) {
       const int q = hits[e];
       const int64_t n = n0 + q;
-      const V* row = p + n * 4 * t4;
+      const float* row = p + n * 4 * t4;
 #pragma unroll
       for (int j = 0; j < NV; ++j)
         if (lane + 32 * j < t4) add4(acc[j], ldg4(row + 4 * (lane + 32 * j)));
-      const float code = (float)code_at(tile, a.rows, warp, q);
-      const float w = fmaf(a.cs, code, a.cb);
-      const V* vr = v + n * k;
+      const float w = fmaf(a.cs, (float)code_at(tile, a.rows, warp, q), a.cb);
+      const float* vr = v + n * k;
 #pragma unroll
-      for (int q3 = 0; q3 < 3; ++q3) {
-        if (lane + 32 * q3 >= k) continue;
-        const float x = ldg1(vr + lane + 32 * q3);
-        if constexpr (bpmf::kBf16<V>)
-          r[q3] += fmaf(code, round_bf16(cs_b * x), round_bf16(cb_b * x));
-        else
-          r[q3] = fmaf(w, x, r[q3]);
-      }
+      for (int q3 = 0; q3 < 3; ++q3)
+        if (lane + 32 * q3 < k) r[q3] = fmaf(w, ldg1(vr + lane + 32 * q3), r[q3]);
     }
   }
 
@@ -619,24 +594,23 @@ gram_rhs_hoisted(const HoistArgs a) {
   }
 }
 
-template <typename T, typename V, int NV>
+template <typename T, int NV>
 int launch_hoisted(dim3 grid, cudaStream_t s, const HoistArgs& a) {
-  gram_rhs_hoisted<T, V, NV><<<grid, kThreads, HoistSmem<T>::kBytes, s>>>(a);
+  gram_rhs_hoisted<T, NV><<<grid, kThreads, HoistSmem<T>::kBytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The instance of t_out: NV float4 sums a lane, t_out <= 128 NV
-template <typename T, typename V>
+template <typename T>
 int dispatch_hoisted(dim3 grid, cudaStream_t s, const HoistArgs& a) {
-  if (a.t4 <= 32 * 2) return launch_hoisted<T, V, 2>(grid, s, a);     // tight K <= 22
-  if (a.t4 <= 32 * 5) return launch_hoisted<T, V, 5>(grid, s, a);     // tight K <= 35
-  if (a.t4 <= 32 * 10) return launch_hoisted<T, V, 10>(grid, s, a);   // tight K <= 50
-  if (a.t4 <= 32 * 17) return launch_hoisted<T, V, 17>(grid, s, a);   // tight K <= 65
-  return launch_hoisted<T, V, kHoistMaxVec>(grid, s, a);              // tight K <= 79
+  if (a.t4 <= 32 * 2) return launch_hoisted<T, 2>(grid, s, a);     // tight K <= 22
+  if (a.t4 <= 32 * 5) return launch_hoisted<T, 5>(grid, s, a);     // tight K <= 35
+  if (a.t4 <= 32 * 10) return launch_hoisted<T, 10>(grid, s, a);   // tight K <= 50
+  if (a.t4 <= 32 * 17) return launch_hoisted<T, 17>(grid, s, a);   // tight K <= 65
+  return launch_hoisted<T, kHoistMaxVec>(grid, s, a);              // tight K <= 79
 }
 
-// The library's C entry point for operand type V (float: dense8_gram_rhs.cu,
-// bf16: dense8_gram_rhs_bf16.cu).  codes is [n_rows, n_cols],
+// The library's C entry point (dense8_gram_rhs.cu).  codes is [n_rows, n_cols],
 // row-major, of code_bytes bytes each (1: int8, 2: int16), starting on a
 // 16-byte boundary, both dimensions multiples of 512; rows != 0 makes the
 // code rows the items.  The frozen axis's 512-entry tiles are split into
@@ -644,17 +618,16 @@ int dispatch_hoisted(dim3 grid, cudaStream_t s, const HoistArgs& a) {
 // one, `partial` is a float32 scratch [segments, items, part] and
 // `arrivals` an int32 [items / 8] that is zero before the launch and left
 // zero after it, so launches that share it must be ordered (one stream).
-// v is [N, v_stride] row-major of type V (N = the frozen count).  p ==
+// v is [N, v_stride] row-major float (N = the frozen count).  p ==
 // null selects the in-kernel products (#3): v_stride is the instance's
 // width (16, 32, 48 or 64 up to k = 64, else roundup(k, 4); the wrapper's
 // gram_row_floats) with zero columns past k, v starts on a 16-byte
 // boundary, gram is [items, t_out] in the tight layout with rows past
 // k(k+1)/2 zeroed, and part = k(k+1)/2 + k.  Otherwise (#4) v_stride is k,
-// p is [N, t_out] row-major of type V on a 16-byte boundary with t_out a
+// p is [N, t_out] row-major float on a 16-byte boundary with t_out a
 // multiple of 4 up to 3328, every one of its rows is summed into gram
 // [items, t_out], and part = t_out + roundup(k, 4).  gram and rhs [items,
 // k] are float32.  Launches on `stream`, returns cudaGetLastError().
-template <typename V>
 int gram_rhs_entry(const void* codes, int code_bytes, int n_rows, int n_cols,
                    int rows, int k, const void* v, int v_stride, const void* p,
                    int t_out, float cs, float cb, int segments,
@@ -687,21 +660,21 @@ int gram_rhs_entry(const void* codes, int code_bytes, int n_rows, int n_cols,
                       p, t_out / 4, cs, cb, t_out + (k + 3) / 4 * 4,
                       static_cast<float*>(partial), static_cast<int*>(arrivals),
                       gf, rf};
-    return code_bytes == 1 ? dispatch_hoisted<int8_t, V>(grid, s, a)
-                           : dispatch_hoisted<int16_t, V>(grid, s, a);
+    return code_bytes == 1 ? dispatch_hoisted<int8_t>(grid, s, a)
+                           : dispatch_hoisted<int16_t>(grid, s, a);
   }
   if (t_out < k * (k + 1) / 2 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const GramArgs a{codes, n_cols, rows, n_tiles, tiles_per_seg, items, k,
                    v, v_stride, cs, cb, t_out, static_cast<float*>(partial),
                    static_cast<int*>(arrivals), gf, rf};
-  return code_bytes == 1 ? dispatch_inkernel<int8_t, V>(grid, s, a)
-                         : dispatch_inkernel<int16_t, V>(grid, s, a);
+  return code_bytes == 1 ? dispatch_inkernel<int8_t>(grid, s, a)
+                         : dispatch_inkernel<int16_t>(grid, s, a);
 }
 
 }  // namespace
 
-// The C entry point's parameters, for the thin files that instantiate it.
+// The C entry point's parameters, for the file that defines it.
 #define BPMF_GRAM_RHS_PARAMS                                                   \
   const void *codes, int code_bytes, int n_rows, int n_cols, int rows, int k, \
       const void *v, int v_stride, const void *p, int t_out, float cs,       \

@@ -1,11 +1,13 @@
 // Code staging shared by the dense8 kernels for Hopper: the megakernel
-// (dense8_sweep_solve.cuh, #1/#2) and the Gram of the split pipeline
-// (dense8_gram_rhs.cuh, #3/#4).  A block of kItemsPerBlock items (a warp
-// each) walks the frozen axis in tiles of kTile entries; each tile of the
-// block's codes is copied to shared memory with cp.async while the
-// previous one is compacted and summed.  Beside it, the operand types the
-// kernels read v and the hoisted p in: float, or __nv_bfloat16 for bf16
-// matmul inputs (Config.matmul_dtype), whose 4-entry pieces are 8 bytes.
+// (dense8_sweep_solve.cuh, #1/#2) and the float32 Gram of the split
+// pipeline (dense8_gram_rhs.cuh, #3/#4).  A block of kItemsPerBlock items
+// (a warp each) walks the frozen axis in tiles of kTile entries; each
+// tile of the block's codes is copied to shared memory with cp.async
+// while the previous one is compacted and summed.  Beside it, the operand
+// types the megakernel reads v and the hoisted p in: float, or
+// __nv_bfloat16 for bf16 matmul inputs (Config.matmul_dtype), whose
+// 4-entry pieces are 8 bytes.  The tensor-core Gram of bf16 operands
+// (dense8_gram_mma.cu) takes cp_async and mul_bf16x2 from here.
 
 #pragma once
 
@@ -79,11 +81,6 @@ constexpr bool kBf16 = sizeof(V) == 2;
 // vector load and cp.async copy of an operand.
 template <typename V>
 constexpr int kPieceBytes = 4 * (int)sizeof(V);
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Four bf16 entries (8 bytes, entry 0 in the low half of x) as floats:
 // exact, a bf16 is the high half of the float it rounds.

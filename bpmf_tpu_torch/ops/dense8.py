@@ -16,21 +16,23 @@ Device part, two routes:
   formed in the kernel (#1) or streamed from a hoisted operand
   :func:`packed_tri_t` in the tight or the 8-aligned layout (#2);
 * the first stage of the split pipeline, :func:`dense8_gram_rhs_rows` /
-  :func:`dense8_gram_rhs_cols`: the packed Gram and the rhs only
-  (``csrc/dense8_gram_rhs.cu``; both split the frozen axis into segments,
+  :func:`dense8_gram_rhs_cols`: the packed Gram and the rhs only, then
+  ``ops/pallas_solve`` solves.  On float32 operands a sparse walk over the
+  rated entries (``csrc/dense8_gram_rhs.cu``; the frozen axis in segments,
   the in-kernel products by :func:`sweep_plan` as the megakernel does, the
-  hoisted operand by :func:`hoisted_plan`), then
-  ``ops/pallas_solve`` solves.
+  hoisted operand by :func:`hoisted_plan`); on bf16 operands one dense
+  tensor-core product over the code tiles for both (``csrc/
+  dense8_gram_mma.cu``; tiles and segments by :func:`mma_plan`).
 
 Each has a plain PyTorch version (``*_ref``).  A wrapper runs the plain
 version only for tensors on the CPU; a CUDA tensor launches the kernel or
 raises.  The frozen items ``v_t`` and the hoisted operand ``p_t`` are
 float32, or bf16 (``Config.matmul_dtype="bfloat16"``), which takes the
-bf16 instances of each kernel, in libraries of their own
-(``csrc/*_bf16.cu``), and rounds where the JAX package's kernels round:
-#1/#3 each product of two entries of v, #2/#4 the fold's rhs weights
-cs*v and cb*v (cs and cb rounded first); every sum is float32.  A bf16
-tensor never reaches a float32 instance.
+megakernel's bf16 instances (``csrc/dense8_sweep_solve_bf16.cu``) and the
+tensor-core Gram, in libraries of their own, and rounds where the JAX
+package's kernels round: #1/#3 each product of two entries of v, #2/#4
+the fold's rhs weights cs*v and cb*v (cs and cb rounded first); every sum
+is float32.  A bf16 tensor never reaches a float32 instance.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ __all__ = [
     "dense8_sweep_solve_ref",
     "sweep_plan",
     "hoisted_plan",
+    "mma_plan",
 ]
 
 BLOCK_MULTIPLE = 512  # both sides' padded_num must be a multiple of this
@@ -96,8 +99,9 @@ OPERAND_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 # CUDA launches, counted where they launch (plain-version calls are not):
 # the megakernel by its operand (#1 'inkernel', #2 'tight' or 'aligned'),
 # the Gram kernels (#3 'inkernel', #4 'hoisted'), and the megakernel by
-# instance (sweep_instance_key).  A bf16 instance counts under the float32
-# key with OPERAND_SUFFIX's "_bf16".
+# instance (sweep_instance_key).  A launch on bf16 operands (the
+# megakernel's bf16 instances, the tensor-core Gram) counts under the
+# float32 key with OPERAND_SUFFIX's "_bf16".
 sweep_launches = {o + s: 0 for s in OPERAND_SUFFIX.values()
                   for o in ("inkernel", "tight", "aligned")}
 gram_launches = {o + s: 0 for s in OPERAND_SUFFIX.values()
@@ -395,6 +399,8 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
         raise ValueError("codes must be contiguous (row-major)")
     if codes.data_ptr() % 16:
         raise ValueError("codes must start on a 16-byte boundary (cp.async)")
+    if suffix:
+        return _gram_rhs_mma(codes, p_t, v_t, cs, cb, orientation, items, frozen)
     dev = codes.device
     partial = arrivals = None
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -414,7 +420,7 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
     gram = torch.empty((items, t_out), dtype=torch.float32, device=dev)
     rhs = torch.empty((items, k), dtype=torch.float32, device=dev)
     r, c = codes.shape
-    err = _gram_kernel(bool(suffix))(
+    err = _gram_kernel()(
         codes.data_ptr(), codes.element_size(), r, c, int(orientation == "rows"),
         k, v.data_ptr(), kv, None if p is None else p.data_ptr(), t_out, cs, cb,
         plan.segments, plan.tiles_per_segment,
@@ -423,7 +429,46 @@ def _gram_rhs(codes, p_t, v_t, cs, cb, orientation, max_degree):
         gram.data_ptr(), rhs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dense8_gram_rhs kernel launch failed: cudaError {err}")
-    gram_launches[("hoisted" if p is not None else "inkernel") + suffix] += 1
+    gram_launches["hoisted" if p is not None else "inkernel"] += 1
+    return gram.t(), rhs.t()
+
+
+def _gram_rhs_mma(codes, p_t, v_t, cs, cb, orientation, items, frozen):
+    """dense8_gram_rhs_rows/cols on bf16 CUDA operands: the tensor-core
+    kernel (``csrc/dense8_gram_mma.cu``) on :func:`mma_plan`'s tiles and
+    segments, #3 (``p_t`` None: the tight products formed in the kernel)
+    or #4 (``p_t``'s every row summed), counted under ``gram_launches``'
+    ``_bf16`` keys."""
+    k = v_t.shape[0]
+    dev = codes.device
+    v = v_t.contiguous()          # [K, N]: the kernel stages v_t's rows
+    if v.data_ptr() % 16:
+        v = v.clone()
+    if p_t is None:
+        t_out, p = tight_rows(k), None
+    else:
+        p = _hoisted_rows(p_t)                 # [N, T]
+        t_out = p.shape[1]
+    plan = mma_plan(items, frozen, t_out, k, _sm_count(dev),
+                    code_bytes=codes.element_size())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = arrivals = None
+    if plan.segments > 1:
+        partial = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+        arrivals = _arrival_counters(dev, stream, plan.counters)
+    gram = torch.empty((items, t_out), dtype=torch.float32, device=dev)
+    rhs = torch.empty((items, k), dtype=torch.float32, device=dev)
+    r, c = codes.shape
+    err = _mma_kernel()(
+        codes.data_ptr(), codes.element_size(), r, c, int(orientation == "rows"),
+        k, v.data_ptr(), None if p is None else p.data_ptr(), t_out, cs, cb,
+        plan.segments, plan.chunks_per_segment, plan.smem_bytes,
+        None if partial is None else partial.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
+        gram.data_ptr(), rhs.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dense8_gram_mma kernel launch failed: cudaError {err}")
+    gram_launches[("hoisted" if p is not None else "inkernel") + "_bf16"] += 1
     return gram.t(), rhs.t()
 
 
@@ -446,16 +491,27 @@ def _hoisted_rows(p_t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _gram_kernel(bf16: bool = False):
-    """The Gram kernels' C entry point for float32 or bf16 operands (built
-    on first use, one library each)."""
+def _gram_kernel():
+    """The float32 Gram kernels' C entry point (built on first use)."""
     from bpmf_tpu_torch.ops._build import load
 
-    name = "dense8_gram_rhs" + ("_bf16" if bf16 else "")
-    fn = getattr(load(name), "bpmf_" + name)
+    fn = load("dense8_gram_rhs").bpmf_dense8_gram_rhs
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = ctypes.c_int
     fn.argtypes = [p, i, i, i, i, i, p, i, p, i, f, f, i, i, p, p, p, p, p]
+    return fn
+
+
+@functools.cache
+def _mma_kernel():
+    """The tensor-core Gram's C entry point, bf16 operands (built on first
+    use)."""
+    from bpmf_tpu_torch.ops._build import load
+
+    fn = load("dense8_gram_mma").bpmf_dense8_gram_mma
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.restype = ctypes.c_int
+    fn.argtypes = [p, i, i, i, i, i, p, p, i, f, f, i, i, i, p, p, p, p, p]
     return fn
 
 
@@ -472,21 +528,25 @@ def dense8_gram_rhs_rows(codes: torch.Tensor, p_t: Optional[torch.Tensor],
     The JAX package's ``BPMF_D8_FOLD`` (the cb-term riding the Gram as K
     extra rows, which saves the TPU an MXU pass) has no counterpart at
     float32: it changes only rounding, and the kernel forms cs*code + cb
-    per rating on both routes; on bf16 operands #4 rounds the rhs weights
-    as its default does (:func:`fold_weights`).  CPU tensors take
+    per rating on both routes; on bf16 operands #3's rhs is
+    cs*(code@v) + cb*(ind@v) and #4's code@bf16(cs v) + ind@bf16(cb v),
+    as the JAX kernels and its default fold form them (:func:`fold_weights`).  CPU tensors take
     :func:`dense8_gram_rhs_ref`; CUDA tensors the kernel (float32 or bf16 ``v_t`` and ``p_t`` of one type, K
     within the dense8 gate, codes on a 16-byte boundary).  Outputs are
     float32; on the card the transposed views of item-major tensors.
 
-    Both kernels split the frozen axis into segments, from ``max_degree``
-    (the most ratings any item of this side has, at most the frozen count;
-    the sampler passes it) or from the shape alone: the in-kernel products
-    (#3) by :func:`sweep_plan`, the hoisted operand (#4) by
-    :func:`hoisted_plan`, which also keeps a segment's rows of ``p_t``
-    within L2.  The result is the same bit for bit from launch to launch.
-    #4 reads ``p_t`` as the transposed view of an item-major [C, T] tensor,
-    which :func:`packed_tri_t` gives, with no copy; it takes T a multiple
-    of 4 up to :data:`HOISTED_MAX_ROWS`."""
+    On float32 operands both kernels walk the rated entries and split the
+    frozen axis into segments, from ``max_degree`` (the most ratings any
+    item of this side has, at most the frozen count; the sampler passes
+    it) or from the shape alone: the in-kernel products (#3) by
+    :func:`sweep_plan`, the hoisted operand (#4) by :func:`hoisted_plan`,
+    which also keeps a segment's rows of ``p_t`` within L2.  On bf16
+    operands one tensor-core kernel multiplies the whole code array, dense
+    as the TPU kernels do (``max_degree`` is not needed), on
+    :func:`mma_plan`'s tiles and segments.  The result is the same bit for
+    bit from launch to launch.  #4 reads ``p_t`` as the transposed view of
+    an item-major [C, T] tensor, which :func:`packed_tri_t` gives, with no
+    copy; it takes T a multiple of 4 up to :data:`HOISTED_MAX_ROWS`."""
     return _gram_rhs(codes, p_t, v_t, cs, cb, "rows", max_degree)
 
 
@@ -559,6 +619,13 @@ BLOCKS_PER_SM = 2         # ... and its blocks resident on one SM
 SEGMENT_RATINGS = 2048    # at most this many of the most-rated item's
                           # ratings in one segment of the frozen axis
 SCRATCH_LIMIT_BYTES = 1 << 30  # the segments' partial sums at most
+MMA_ITEMS = 128       # the tensor-core Gram's block: items (mma rows),
+MMA_COLS = 128        # output columns,
+MMA_CHUNK = 64        # frozen entries a step,
+MMA_RHS = 64          # rhs entries a column tile (64 columns each on the
+                      # codes and on the indicator),
+MMA_STAGES = (4, 3)   # stages of codes and of p's rows (int8, int16 codes),
+MMA_BLOCKS_PER_SM = 2  # and blocks resident on one SM
 HOISTED_SEGMENT_RATINGS = 512  # #4 reads one rated row of p at a time a
                                # warp, so it takes fewer of the most-rated
                                # item's ratings a segment than SEGMENT_RATINGS
@@ -632,6 +699,61 @@ def _segment_plan(items, frozen, partial, max_degree, sms,
     return SweepPlan(s, per, (s, items, partial), blocks)
 
 
+class MmaPlan(NamedTuple):
+    """The tensor-core Gram's launch (:func:`mma_plan`)."""
+
+    item_tiles: int          # blocks of MMA_ITEMS items (grid y)
+    gram_tiles: int          # column tiles of the Gram, ceil(T / MMA_COLS),
+    rhs_tiles: int           # then of the rhs, ceil(K / MMA_RHS) (grid x)
+    segments: int            # S: runs of the frozen axis (grid z)
+    chunks_per_segment: int  # MMA_CHUNK-entry chunks each segment sums
+    scratch_shape: tuple     # the partial sums [S, items, T + roundup(K, 4)], or ()
+    counters: int            # arrival counters, one a tile at S > 1, or 0
+    smem_bytes: int          # dynamic shared memory a block
+
+
+def mma_plan(items: int, frozen: int, t: int, k: int, sms: int = 132, *,
+             code_bytes: int = 2) -> MmaPlan:
+    """The tiles and segments of the tensor-core Gram (bf16 #3/#4) for
+    ``items`` items over ``frozen`` frozen entries (both multiples of 512),
+    a Gram of ``t`` columns and K ``k``, on a card of ``sms`` SMs, with
+    codes of ``code_bytes`` bytes.  A block owns MMA_ITEMS items x
+    MMA_COLS columns of the Gram, or MMA_RHS entries of the rhs, over one
+    segment of the frozen axis; the segment count S is the smallest that
+    gives at least two waves of blocks (``tiles * S >= 2 * 2 * sms``, two
+    blocks to an SM), capped by the chunks and by a scratch of
+    :data:`SCRATCH_LIMIT_BYTES`, with every segment ``chunks_per_segment``
+    chunks but the last, which holds at least one.  The work is dense, so
+    the data's degrees do not enter.  ``smem_bytes`` is the kernel's
+    layout, from its first 1 KB boundary: MMA_STAGES stages of codes (a chunk of a tile, as it lies, its
+    rows padded by 16 bytes), then either as many bf16 tiles of p's
+    rows or two formed bf16 B^T tiles and two stages of roundup(K, 8) rows
+    of v_t (padded by 16 bytes)."""
+    item_tiles = items // MMA_ITEMS
+    gram_tiles, rhs_tiles = -(-t // MMA_COLS), -(-k // MMA_RHS)
+    tiles = item_tiles * (gram_tiles + rhs_tiles)
+    chunks = frozen // MMA_CHUNK
+    part = t + -(-k // 4) * 4
+    kv = -(-k // 8) * 8
+    code_stage = max(MMA_ITEMS * (MMA_CHUNK * code_bytes + 16),    # rows
+                     MMA_CHUNK * (MMA_ITEMS * code_bytes + 16))    # cols
+    b_tile = MMA_CHUNK * MMA_COLS * 2
+    stages = MMA_STAGES[code_bytes - 1]
+    smem = 1024 + stages * code_stage + max(stages * b_tile,  # + 1 KB to align
+                                            2 * b_tile + 2 * kv * (MMA_CHUNK + 8) * 2)
+    cap = max(1, min(chunks, SCRATCH_LIMIT_BYTES // (4 * items * part)))
+    want = min(cap, -(-2 * MMA_BLOCKS_PER_SM * sms // tiles))
+    per = max(1, chunks // want)        # rounds S up to at least `want`
+    s = -(-chunks // per)
+    if s > cap:                         # ... but not past the cap
+        per = -(-chunks // cap)
+        s = -(-chunks // per)
+    if s == 1:
+        return MmaPlan(item_tiles, gram_tiles, rhs_tiles, 1, chunks, (), 0, smem)
+    return MmaPlan(item_tiles, gram_tiles, rhs_tiles, s, per, (s, items, part),
+                   tiles, smem)
+
+
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -642,9 +764,9 @@ _arrivals: dict = {}
 
 def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """The int32 arrival counters of the segmented kernels (the megakernel
-    and the in-kernel Gram) on one stream: zeroed once, and left zero by
-    every launch (its last block per item block resets its counter), so
-    launches on the stream share them."""
+    and the Gram kernels) on one stream: zeroed once, and left zero by
+    every launch (its last block per item block, or tile, resets its
+    counter), so launches on the stream share them."""
     key = (device, stream)
     buf = _arrivals.get(key)
     if buf is None or buf.numel() < n:

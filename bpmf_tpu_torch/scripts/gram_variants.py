@@ -37,14 +37,14 @@ import subprocess
 EDITS = {
     "nofma": [("for (int j4 = 0; j4 < KP / 4; ++j4) {\n      const auto c = load_piece(",
                "for (int j4 = 0; j4 < 0; ++j4) {\n      const auto c = load_piece(")],
-    "noring": [("        cp_async<bpmf::kPieceBytes<V>>(dst + s * kv + 4 * piece,",
-                "        if (kv < 0) cp_async<bpmf::kPieceBytes<V>>(dst + s * kv + 4 * piece,")],
+    "noring": [("        cp_async<16>(dst + s * kv + 4 * piece,",
+                "        if (kv < 0) cp_async<16>(dst + s * kv + 4 * piece,")],
     "noepi": [("if (j <= i) dst[tight_row(i, j, k)] = acc.g[q][j];",
                "if (j <= i && acc.g[q][j] == 1234.5f) dst[tight_row(i, j, k)] = acc.g[q][j];")],
-    "tiles": [("  if (a.k <= 16) return launch_rows<T, V, 16>(grid, s, a);\n"
-               "  if (a.k <= 32) return launch_rows<T, V, 32>(grid, s, a);\n"
-               "  if (a.k <= 48) return launch_rows<T, V, 48>(grid, s, a);\n"
-               "  if (a.k <= 64) return launch_rows<T, V, 64>(grid, s, a);\n", "")],
+    "tiles": [("  if (a.k <= 16) return launch_rows<T, 16>(grid, s, a);\n"
+               "  if (a.k <= 32) return launch_rows<T, 32>(grid, s, a);\n"
+               "  if (a.k <= 48) return launch_rows<T, 48>(grid, s, a);\n"
+               "  if (a.k <= 64) return launch_rows<T, 64>(grid, s, a);\n", "")],
 }
 
 

@@ -2,7 +2,7 @@
 checkouts of this repository on one card.
 
     python bpmf_tpu_torch/scripts/sweep_times.py [--root DIR] [--label NAME]
-        [--legs tall,ml1m,random,wide,instances,split,blast,hoisted,probe]
+        [--legs tall,ml1m,random,wide,instances,split,blast,hoisted,bf16,probe]
 
 Imports ``bpmf_tpu_torch`` from DIR (default: the checkout this file lies
 in), so one copy of the script times any tree whose megakernel has the
@@ -62,6 +62,13 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
   then the chembl synth at K=64 under ``BPMF_D8_PT=hoisted`` (#4 on both
   sides: the proteins' most-rated with 61,253 ratings) as ``split`` runs
   its chains;
+* ``bf16``: the split and hoisted legs on bf16 operands
+  (``Config.matmul_dtype="bfloat16"``): #3 and #4 at [6144, 4096], K=64,
+  rows + cols, on the hoisted leg's codes and frozen items rounded to bf16
+  (single calls, per launch, and cuBLAS's bf16 chain,
+  :func:`bf16_random`), then the ml-1m synth and the chembl synth at K=64
+  as ``split`` runs them (the ml-1m sides on #3, the chembl compounds on
+  #4 and its proteins on #3);
 * ``probe``: the gather probes #9A, #9B, #9C and ``embedding_bag`` (the
   same function in one PyTorch call) at the JAX script's shapes (R = W =
   512, NV = 32768, K = 32), at R = 8192, B and ``embedding_bag`` at NV =
@@ -417,11 +424,12 @@ def kept_calls(sampler):
     return seen
 
 
-def split_chain(bpmf, cfg, train, test, k, warm, iters, reps=10):
-    """ms/iter of a split chain, then each kernel call of one more
-    iteration timed on its own arguments: gram_<side> (#3 or #4) and
-    solve_<side> (#5), sides named movies and users."""
-    s, ms = chain(bpmf, cfg, train, test, warm, iters, k)
+def split_chain(bpmf, cfg, train, test, k, warm, iters, reps=10, **kw):
+    """ms/iter of a split chain (``kw``: more of its Config), then each
+    kernel call of one more iteration timed on its own arguments:
+    gram_<side> (#3 or #4) and solve_<side> (#5), sides named movies and
+    users."""
+    s, ms = chain(bpmf, cfg, train, test, warm, iters, k, **kw)
     out = {"ms_per_iter": ms, "iterations": iters, "k": k,
            "routes": {"movies": s.movies.route, "users": s.users.route}}
     sides = iter(("movies", "users"))
@@ -548,6 +556,43 @@ def gram_library(codes, p_t, v_t, cs, cb, orientation):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def bf16_library(codes, p_t, v_t, cs, cb, orientation, solve=None):
+    """The bf16 kernels' function as a library chain, their yardstick:
+    cuBLAS bf16 products with float32 sums (``torch.mm(..., out_dtype=
+    torch.float32)``) of the packed operand (built from v_t, rounded, for
+    #1/#3; p_t's valid rows for #2, its every row for #4) and the bf16
+    indicator, and of v_t and the bf16 codes (exact up to 256) for the
+    rhs.  ``solve`` (lam, prior_rhs, noise_t, alpha, layout): the
+    megakernel's rest, ops.pallas_solve.tri_combine and torch.linalg."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+    from bpmf_tpu_torch.ops import pallas_solve as ps
+
+    bf, f32 = torch.bfloat16, torch.float32
+    k = v_t.shape[0]
+    tv = k * (k + 1) // 2
+    x = codes if orientation == "rows" else codes.t()
+    ind, cv = (x != 0).to(bf), x.to(bf)
+    if p_t is None:
+        p = d8.packed_tri_t(v_t.float())[:tv].to(bf)
+    elif solve is not None:
+        p = p_t[torch.as_tensor(d8._layout_rows(k, solve[4])[0], device=p_t.device)]
+    else:
+        p = p_t
+    gram = torch.mm(p, ind.t(), out_dtype=f32)
+    rhs = (cs * torch.mm(v_t, cv.t(), out_dtype=f32)
+           + cb * torch.mm(v_t, ind.t(), out_dtype=f32))
+    if solve is None:
+        return gram, rhs
+    lam, prior_rhs, noise_t, alpha, _ = solve
+    chol = torch.linalg.cholesky_ex(ps.tri_combine(gram, lam, alpha)).L
+    y = torch.linalg.solve_triangular(chol, (rhs + prior_rhs).t()[..., None],
+                                      upper=False)
+    return torch.linalg.solve_triangular(
+        chol.mT, y + noise_t.t()[..., None], upper=True)[..., 0].t()
+
+
 def hoisted_random(reps=25):
     """#4 at [6144, 4096], K=64, rows + cols, on chip_smoke.py phase 5's
     random codes and frozen items (its seeds, cs and cb): this tree's
@@ -587,6 +632,38 @@ def hoisted_random(reps=25):
     return out
 
 
+def bf16_random(reps=25):
+    """#3 and #4 on bf16 operands at [6144, 4096], K=64, rows + cols, on
+    hoisted_random's codes and frozen items rounded to bf16, with
+    chip_smoke.py phase 26's cs and cb (not bf16 values): the median of
+    ``reps`` single calls, the time per launch over 100 back-to-back
+    launches (:func:`per_launch_ms`), and :func:`bf16_library`."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    out = {}
+    k, cs, cb = 64, 0.7, -1.3
+    for i, orientation in enumerate(("rows", "cols")):
+        g = torch.Generator(device="cuda").manual_seed(10 * k + i)
+        gc = torch.Generator(device="cuda").manual_seed(10 * k + i)
+        shape = (6144, 4096)
+        codes = torch.where(torch.rand(shape, generator=gc, device="cuda") < 0.04,
+                            torch.randint(1, 6, shape, generator=gc, device="cuda"),
+                            0).to(torch.int8)
+        frozen = shape[1] if orientation == "rows" else shape[0]
+        v_b = (0.5 * torch.randn((k, frozen), generator=g, device="cuda")).bfloat16()
+        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+        for pt in ("inkernel", "hoisted"):
+            p_t = d8.packed_tri_t(v_b.float()).bfloat16() if pt == "hoisted" else None
+            key = f"{pt}_{orientation}"
+            out[f"{key}_ms"] = median_ms(lambda: fn(codes, p_t, v_b, cs, cb), reps)
+            out[f"{key}_per_launch_ms"] = per_launch_ms(lambda: fn(codes, p_t, v_b, cs, cb))
+            out[f"{key}_library_ms"] = median_ms(
+                lambda: bf16_library(codes, p_t, v_b, cs, cb, orientation), reps)
+    return out
+
+
 def main(argv=None):
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -597,7 +674,7 @@ def main(argv=None):
     ap.add_argument("--ml1m-iters", type=int, default=200)
     ap.add_argument("--legs", default="tall,ml1m,random",
                     help="comma-separated: tall, ml1m, random, wide, instances, "
-                         "split, blast, hoisted, probe")
+                         "split, blast, hoisted, bf16, probe")
     a = ap.parse_args(argv)
     legs = a.legs.split(",")
     root = os.path.abspath(a.root)
@@ -672,6 +749,15 @@ def main(argv=None):
         finally:
             del os.environ["BPMF_D8_PT"]
         out["hoisted"] = hoisted
+    if "bf16" in legs:
+        ctrain, ctest = synth_chembl()
+        out["bf16"] = {
+            "random_k64": bf16_random(),
+            "ml1m_k64": split_chain(BPMF, Config, train, test, 64, 20, 100,
+                                    matmul_dtype="bfloat16"),
+            "chembl_k64": split_chain(BPMF, Config, ctrain, ctest, 64, 5, 20,
+                                      matmul_dtype="bfloat16")}
+        del ctrain, ctest
     if "probe" in legs:
         out["probe"] = probe_times()
     out["device"] = torch.cuda.get_device_name(0)

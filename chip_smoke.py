@@ -7,8 +7,9 @@ the port builds, is right and runs its paths on the card.
 Phases, each printing JSON lines:
   1. device   torch/CUDA versions, the card, its power limit
   2. build    nvcc builds the seven kernel libraries of bpmf_tpu_torch/csrc
-              (the dense8 kernels' bf16 instances in two of their own), all
-              at once; each kernel's registers and spill bytes (ptxas)
+              (the megakernel's bf16 instances and the tensor-core Gram of
+              bf16 operands in two of their own), all at once; each
+              kernel's registers and spill bytes (ptxas)
   3. kernel   the megakernel (#1), and the megakernel streaming a hoisted
               operand (#2) in the tight and the 8-aligned layout, against
               their plain PyTorch versions at the padded ml-1m shape
@@ -191,7 +192,8 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
   26. bf16   bf16 matmul inputs (Config.matmul_dtype="bfloat16", the JAX
               package's own main path on a TPU; cs = 0.7, cb = -1.3, which
               bf16 does not hold): #1 and #2 (tight, aligned) at phase 3's
-              [6144, 4096], K=32, and #3/#4 at K=64, rows + cols, on bf16
+              [6144, 4096], K=32, and #3/#4 (the tensor-core Gram,
+              csrc/dense8_gram_mma.cu) at K=64 and 79, rows + cols, on bf16
               operands against their plain versions at KERNEL_TOL, the
               solves also item by item against the float64 draw of the same
               bf16 system (SOLVE_BOUND), every launch repeated bitwise
@@ -208,7 +210,12 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               under BPMF_D8_PT=hoisted (#4), and phase 13's off-grid fused
               dense chain (2 of 250, the dense blocks in bf16, within 0.005
               of its float32 twin); each finite, its launches counted on the
-              bf16 instances only, and 3 iterations against the plain chain
+              bf16 instances only, and 3 iterations against the plain chain;
+              last phase 9's chembl K=64 chain at bf16 (2 of 50: #4 on the
+              compounds, #3 on the proteins) within 0.01 of phase 9's
+              rmse_avg, then #3/#4 on its own codes and last state; each
+              Gram row beside its dense floor, 2 items frozen (T + 2K) at
+              BF16_MMA_FLOPS_PER_S
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -261,7 +268,7 @@ SOLVE_BOUND = {"per_item": "u*kappa_F(A)*|u|_2 + atol", "u": 2.0 ** -24,
                "atol": 1e-5}
 LIBS = ("dense8_sweep_solve", "dense8_gram_rhs", "tri_combine_solve",
         "chol_solve_sample", "gather_probe", "dense8_sweep_solve_bf16",
-        "dense8_gram_rhs_bf16")
+        "dense8_gram_mma")
 PROBE_TOL = dict(rtol=1e-4, atol=1e-4)  # sums of 512 f32 terms, other order
 DEFER_TOL = dict(rtol=1e-6, atol=0.0)   # the same predictions, gathered at once
 PAVG_TOL = dict(rtol=1e-5, atol=0.0)    # f32 on the card, float64 from the file
@@ -700,43 +707,6 @@ def d8_rhs64(codes, v_t, prior_rhs, cs, cb, orientation, fold):
         v = v_t.to(f64)
         rhs = cs * (cv @ v.t()) + cb * (ind @ v.t())
     return rhs + prior_rhs.to(f64).t()
-
-
-def bf16_library(codes, p_t, v_t, cs, cb, orientation, solve=None):
-    """The bf16 kernels' function as a library chain, their yardstick:
-    cuBLAS bf16 products with float32 sums (``torch.mm(..., out_dtype=
-    torch.float32)``) of the packed operand (built from v_t, rounded, for
-    #1/#3; p_t's valid rows for #2, its every row for #4) and the bf16
-    indicator, and of v_t and the bf16 codes (exact up to 256) for the
-    rhs.  ``solve`` (lam, prior_rhs, noise_t, alpha, layout): the
-    megakernel's rest, ops.pallas_solve.tri_combine and torch.linalg."""
-    import torch
-
-    from bpmf_tpu_torch.ops import dense8 as d8
-    from bpmf_tpu_torch.ops import pallas_solve as ps
-
-    bf, f32 = torch.bfloat16, torch.float32
-    k = v_t.shape[0]
-    tv = k * (k + 1) // 2
-    x = codes if orientation == "rows" else codes.t()
-    ind, cv = (x != 0).to(bf), x.to(bf)
-    if p_t is None:
-        p = d8.packed_tri_t(v_t.float())[:tv].to(bf)
-    elif solve is not None:
-        p = p_t[torch.as_tensor(d8._layout_rows(k, solve[4])[0], device=p_t.device)]
-    else:
-        p = p_t
-    gram = torch.mm(p, ind.t(), out_dtype=f32)
-    rhs = (cs * torch.mm(v_t, cv.t(), out_dtype=f32)
-           + cb * torch.mm(v_t, ind.t(), out_dtype=f32))
-    if solve is None:
-        return gram, rhs
-    lam, prior_rhs, noise_t, alpha, _ = solve
-    chol = torch.linalg.cholesky_ex(ps.tri_combine(gram, lam, alpha)).L
-    y = torch.linalg.solve_triangular(chol, (rhs + prior_rhs).t()[..., None],
-                                      upper=False)
-    return torch.linalg.solve_triangular(
-        chol.mT, y + noise_t.t()[..., None], upper=True)[..., 0].t()
 
 
 def full_system64(prec):
@@ -1302,6 +1272,7 @@ def main():
     from bpmf_tpu_torch.sampler import BPMF, HostDraws
     from bpmf_tpu_torch.scripts.sweep_times import (
         PROBE_CELLS,
+        bf16_library,
         gram_library,
         per_launch_ms,
     )
@@ -1862,6 +1833,7 @@ def main():
           "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL,
           **per_iter_stats(sampler, chunk_s, c_iters), "setup_s": setup_s, **tag})
     chain_kernels(sampler, "chembl_chain")
+    chembl_rmse = float(mets[-1].rmse_avg[-1])   # phase 26's bf16 chain's anchor
     del sampler
     # the same chain with BPMF_D8_PT=hoisted: the proteins on #4 too (the
     # most-rated protein's 61,253 ratings over the hoisted plan's segments)
@@ -2770,6 +2742,49 @@ def main():
                        *work.items()):
             row[key] += v
 
+    def gram26(codes, v_b, orientation, name, headline, **info):
+        """The tensor-core Gram (#3 'gram_inkernel', #4 'gram_hoisted') on
+        bf16 operands against its plain version, twice bitwise equal, with
+        its bound (the bytes, or the rated entries' operations by type) and
+        beside it the dense floor, 2 items x frozen x (T + 2K) at
+        BF16_MMA_FLOPS_PER_S: the work the kernel does whatever the
+        density.  ``headline``: summed into the kernels line's row."""
+        k = v_b.shape[0]
+        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+        p_t = d8.packed_tri_t(v_b.float()).to(bf) if name == "gram_hoisted" else None
+        got = fn(codes, p_t, v_b, cs26, cb26)
+        torch.cuda.synchronize()
+        again = fn(codes, p_t, v_b, cs26, cb26)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, cs26, cb26, orientation)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **KERNEL_TOL)
+        nnz = int((codes != 0).sum())
+        nbytes = (codes.numel() * codes.element_size()
+                  + 2 * (v_b.numel() + (0 if p_t is None else p_t.numel()))
+                  + 4 * (got[0].numel() + got[1].numel()))
+        work = bf16_gram_work(k, nnz, v_b.shape[1], p_t is None)
+        t_out, items = got[0].shape
+        floor = 1e3 * 2 * items * v_b.shape[1] * (t_out + 2 * k) / BF16_MMA_FLOPS_PER_S
+        r = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+             "ms": median_ms(lambda: fn(codes, p_t, v_b, cs26, cb26)),
+             "plain_ms": median_ms(lambda: d8.dense8_gram_rhs_ref(
+                 codes, p_t, v_b, cs26, cb26, orientation)),
+             "library_ms": median_ms(lambda: bf16_library(
+                 codes, p_t, v_b, cs26, cb26, orientation))}
+        plan = d8.mma_plan(items, v_b.shape[1], t_out, k, d8._sm_count(codes.device),
+                           code_bytes=codes.element_size())
+        info.update(orientation=orientation, k=k, shape=list(codes.shape),
+                    operands="bfloat16", segments=plan.segments,
+                    dense_floor_ms=floor, tolerance=KERNEL_TOL, bitwise_repeated=True)
+        if headline:
+            bf16_record(name, r, nbytes, work, **info)
+            bf16_rows[name]["dense_floor_ms"] = (
+                bf16_rows[name].get("dense_floor_ms", 0.0) + floor)
+        else:
+            emit({"phase": "bf16", "kernel": name, **info, **r, **work,
+                  **bound(nbytes, **work), **tag})
+
     for i, orientation in enumerate(("rows", "cols")):
         codes, v_t, lam, prior_rhs, noise_t = kernel_inputs(orientation, seed=260 + i)
         v_b = v_t.to(bf)
@@ -2815,34 +2830,13 @@ def main():
                         err_vs_f64=err64[0], max_kappa_f=kappa,
                         bitwise_repeated=True)
             assert worst[0] <= 1.0, (name, orientation, worst, err64)
-        # the split Gram at K=64 on bf16 operands
-        codes, v_t = kernel_inputs(orientation, seed=270 + i, k=64)[:2]
-        v_b = v_t.to(bf)
-        fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
-        for name in ("gram_inkernel", "gram_hoisted"):
-            p_t = d8.packed_tri_t(v_b.float()).to(bf) if name == "gram_hoisted" else None
-            got = fn(codes, p_t, v_b, cs26, cb26)
-            torch.cuda.synchronize()
-            again = fn(codes, p_t, v_b, cs26, cb26)
-            assert all(torch.equal(a, b) for a, b in zip(got, again))
-            want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, cs26, cb26, orientation)
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g, w, **KERNEL_TOL)
-            nnz = int((codes != 0).sum())
-            nbytes = (codes.numel() * codes.element_size()
-                      + 2 * (v_b.numel() + (0 if p_t is None else p_t.numel()))
-                      + 4 * (got[0].numel() + got[1].numel()))
-            work = bf16_gram_work(64, nnz, v_b.shape[1], p_t is None)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            r = {"max_abs_err": err,
-                 "ms": median_ms(lambda: fn(codes, p_t, v_b, cs26, cb26)),
-                 "plain_ms": median_ms(lambda: d8.dense8_gram_rhs_ref(
-                     codes, p_t, v_b, cs26, cb26, orientation)),
-                 "library_ms": median_ms(lambda: bf16_library(
-                     codes, p_t, v_b, cs26, cb26, orientation))}
-            bf16_record(name, r, nbytes, work, orientation=orientation, k=64,
-                        shape=list(codes.shape), operands="bfloat16",
-                        tolerance=KERNEL_TOL, bitwise_repeated=True)
+        # the split Gram (the tensor-core kernel) at K=64 and 79 on bf16
+        # operands; K=64 is the kernels line's row
+        for k in (64, 79):
+            codes, v_t = kernel_inputs(orientation, seed=270 + i + (k == 79), k=k)[:2]
+            for name in ("gram_inkernel", "gram_hoisted"):
+                gram26(codes, v_t.to(bf), orientation, name, headline=k == 64,
+                       inputs="random codes")
     # the dense routes' bf16 products (ops.update.matmul_acc): cuBLAS with
     # out_dtype float32 against converting both operands and an SGEMM
     g26 = torch.Generator(device="cuda").manual_seed(290)
@@ -2952,6 +2946,31 @@ def main():
             assert abs(line["rmse_avg"] - o_rmse["fused"]) <= BF16_BAND, line
         emit(line)
         del sampler
+    # the chembl synth at K=64 on bf16 operands, phase 9's chain: #4 on the
+    # compounds, #3 on the proteins (S segments of the compounds), within
+    # RMSE_BAND of the float32 chain; then both on the chain's own codes
+    # and last state
+    ctrain, ctest = synth_chembl()
+
+    def chembl_bf16():
+        return BPMF(Config(num_latent=64, burnin=2, nsims=s_done,
+                           matmul_dtype="bfloat16"), ctrain, ctest, out=devnull,
+                    device="cuda")
+    sampler, mets, line = bf16_chain(
+        chembl_bf16, s_chunks, s_iters, {"movs": "inkernel", "users": "hoisted"},
+        launches(gram_inkernel_bf16=s_done, gram_hoisted_bf16=s_done,
+                 solve_shared=2 * s_done), chain="chembl k64")
+    line.update(first_3_vs_plain_max_abs_err=check_first_iterations(
+        chembl_bf16, mets[0], counts), tolerance=CHAIN_TOL,
+        float32_rmse_avg=chembl_rmse, band=RMSE_BAND)
+    emit(line)
+    assert abs(line["rmse_avg"] - chembl_rmse) <= RMSE_BAND, line
+    for side, orientation, name, frozen in (
+            (sampler.users, "rows", "gram_hoisted", sampler.state_m),
+            (sampler.movies, "cols", "gram_inkernel", sampler.state_u)):
+        gram26(sampler._codes, frozen.items.t().to(bf), orientation, name,
+               headline=False, inputs="chembl_bf16_chain", side=side.name)
+    del sampler, ctrain, ctest
     emit({"phase": "bf16", "phase_s": time.perf_counter() - t26, **tag})
 
     print(smi, flush=True)
@@ -2989,7 +3008,7 @@ def main():
             ("tight", "hoisted operand, tight", "509", "fused_tight_bf16"),
             ("aligned", "hoisted operand, aligned", "509", "fused_aligned_bf16"))]
     bf16_entries += [
-        entry(f"dense8_gram_rhs ({what}, bf16 operands)", "dense8_gram_rhs_bf16.cu",
+        entry(f"dense8_gram_mma ({what}, bf16 operands, tensor cores)", "dense8_gram_mma.cu",
               "bpmf_tpu/ops/dense8.py:" + line, name + "_bf16",
               {**bf16_rows[name], "k": 64, "operands": "bfloat16"})
         for name, what, line in (("gram_inkernel", "in-kernel products", "233"),

@@ -102,7 +102,7 @@ def _rel(got, want):
                  / np.abs(np.asarray(want)).max())
 
 
-@pytest.mark.parametrize("k", [16, 32, 64])
+@pytest.mark.parametrize("k", [16, 32, 42, 64, 65, 79])
 @pytest.mark.parametrize("orientation", ["rows", "cols"])
 @pytest.mark.parametrize("pt", ["inkernel", "hoisted"])
 def test_gram_rhs_bf16_matches_jax(k, orientation, pt, monkeypatch):
@@ -110,7 +110,9 @@ def test_gram_rhs_bf16_matches_jax(k, orientation, pt, monkeypatch):
     Gram's valid rows and the rhs within 1e-5 (relative to the largest
     entry) of the JAX default (fold 1); #4's rhs also within 1e-2 of the
     JAX package's fold 0, which rounds cs*code + cb and so differs in
-    rounding only."""
+    rounding only.  K 42, 65 and 79 are the split route's own (one rhs
+    tile and the last Gram tile partial; two rhs tiles) on the card's
+    tensor-core kernel."""
     codes, v_t, *_ = _inputs(512, 512, k, orientation, seed=40 + k)
     v_j, v = _bf16(v_t)
     p_j = p = None
@@ -130,6 +132,29 @@ def test_gram_rhs_bf16_matches_jax(k, orientation, pt, monkeypatch):
         monkeypatch.setenv("BPMF_D8_FOLD", "0")
         _, want_r0 = jax_fn(jnp.asarray(codes), p_j, v_j, CS, CB, interpret=True)
         assert GRAM_REL < _rel(rhs, want_r0) <= FOLD0_REL
+
+
+@pytest.mark.parametrize("k", [42, 79])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+@pytest.mark.parametrize("pt", ["inkernel", "hoisted"])
+def test_gram_rhs_bf16_int16_matches_jax(k, orientation, pt):
+    """#3 and #4 at bf16 on int16 codes 1..255 (the codes of 128-255
+    rating levels, exact in bf16) against the JAX kernels in interpret
+    mode, within 1e-5 relative, as int8's."""
+    codes, v_t, *_ = _inputs(512, 512, k, orientation, seed=50 + k,
+                             code_dtype="int16")
+    cs = CS / 64
+    v_j, v = _bf16(v_t)
+    p_j = p = None
+    if pt == "hoisted":
+        p_j, p = _packed(v_j, False)
+    jax_fn = getattr(jax_d8, "dense8_gram_rhs_" + orientation)
+    fn = getattr(d8, "dense8_gram_rhs_" + orientation)
+    gram, rhs = fn(torch.from_numpy(codes), p, v, cs, CB)
+    tv = k * (k + 1) // 2
+    want_g, want_r = jax_fn(jnp.asarray(codes), p_j, v_j, cs, CB, interpret=True)
+    assert _rel(gram[:tv], want_g[:tv]) <= GRAM_REL
+    assert _rel(rhs, want_r) <= GRAM_REL
 
 
 @pytest.mark.parametrize("orientation", ["rows", "cols"])

@@ -451,6 +451,97 @@ def test_bf16_kernels_match_plain_on_card(cuda, k, operand, orientation):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
 
 
+def _mma_call(cuda, codes, p_t, v_b, orientation, cs, cb, pt, calls=2):
+    """``calls`` launches of the tensor-core Gram (bf16 #3/#4) on one
+    input: the results, each pair bitwise equal, and each launch counted
+    under ``gram_launches[pt + "_bf16"]`` and nowhere else."""
+    fn = d8.dense8_gram_rhs_rows if orientation == "rows" else d8.dense8_gram_rhs_cols
+    before = dict(d8.gram_launches)
+    got = [fn(codes, p_t, v_b, cs, cb) for _ in range(calls)]
+    torch.cuda.synchronize()
+    n = {key: c - before[key] for key, c in d8.gram_launches.items() if c != before[key]}
+    assert n == {pt + "_bf16": calls}, n
+    for again in got[1:]:
+        assert all(torch.equal(g, a) for g, a in zip(got[0], again))
+    return got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [42, 48, 64, 65, 79])
+@pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+@pytest.mark.parametrize("pt", ["inkernel", "hoisted"])
+def test_gram_mma_matches_plain_on_card(cuda, k, code_dtype, orientation, pt):
+    """The tensor-core Gram (``csrc/dense8_gram_mma.cu``: #3 and #4 on
+    bf16 operands) at every K class of the split route (one and two rhs
+    tiles, the last Gram tile partial), int8 and int16 codes, both
+    orientations (the cols one reads A transposed), against its plain
+    version at 1e-3 (exact products, f32 sums in another order); two
+    launches bitwise equal.  At [1024, 1536] the plan takes S > 1."""
+    bf = torch.bfloat16
+    cs = 0.7 if code_dtype == "int8" else 0.7 / 64
+    codes, v_t = (torch.from_numpy(a).to(cuda) for a in
+                  _inputs(1024, 1536, k, orientation, seed=k + 11, density=0.05,
+                          code_dtype=code_dtype)[:2])
+    v_b = v_t.to(bf)
+    p_t = d8.packed_tri_t(v_b.float()).to(bf) if pt == "hoisted" else None
+    got = _mma_call(cuda, codes, p_t, v_b, orientation, cs, -1.3, pt)
+    want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, cs, -1.3, orientation)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 79])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+@pytest.mark.parametrize("pt", ["inkernel", "hoisted"])
+def test_gram_mma_segments_on_card(cuda, k, orientation, pt, monkeypatch):
+    """512 items over 32,768 frozen entries (chembl's proteins cut down):
+    the plan's S > 1 segments and a forced S = 1 against the plain version
+    at 1e-3 and each other; three launches of the split form bitwise
+    equal (the arrival counters reset, the partials summed in order)."""
+    bf = torch.bfloat16
+    shape = (512, 32768) if orientation == "rows" else (32768, 512)
+    codes, v_t = (torch.from_numpy(a).to(cuda) for a in
+                  _inputs(*shape, k, orientation, seed=k + 13, density=0.03)[:2])
+    v_b = (0.2 * v_t).to(bf)   # keeps sums of ~1000 products near 1
+    p_t = d8.packed_tri_t(v_b.float()).to(bf) if pt == "hoisted" else None
+    t = d8.tight_rows(k)
+    assert d8.mma_plan(512, 32768, t, k).segments > 1
+    want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, 0.7, -1.3, orientation)
+    split = _mma_call(cuda, codes, p_t, v_b, orientation, 0.7, -1.3, pt, calls=3)
+    real = d8.mma_plan
+    monkeypatch.setattr(d8, "mma_plan", lambda *a, **kw: real(*a, **kw)._replace(
+        segments=1, chunks_per_segment=32768 // d8.MMA_CHUNK, scratch_shape=(),
+        counters=0))
+    one = _mma_call(cuda, codes, p_t, v_b, orientation, 0.7, -1.3, pt)
+    for g, o, w in zip(split, one, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(o, w, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(g, o, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t", [(65, 2148), (79, 3164)])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+def test_gram_mma_odd_rows_on_card(cuda, k, t, orientation):
+    """#4 on bf16 operands with a p_t of the tight layout's first T rows,
+    T % 8 == 4 (its rows read in 8-byte pieces) and the last Gram tile
+    partial; every row summed (at K=79 four (0, 0) padding rows too),
+    against the plain version at 1e-3."""
+    bf = torch.bfloat16
+    codes, v_t = (torch.from_numpy(a).to(cuda) for a in
+                  _inputs(1024, 1536, k, orientation, seed=k + 17, density=0.05)[:2])
+    v_b = v_t.to(bf)
+    assert t % 8 == 4 and t % d8.MMA_COLS and t >= k * (k + 1) // 2
+    p_t = d8.packed_tri_t(v_b.float()).to(bf)[:t].t().contiguous().t()
+    got = _mma_call(cuda, codes, p_t, v_b, orientation, 0.7, -1.3, "hoisted")
+    want = d8.dense8_gram_rhs_ref(codes, p_t, v_b, 0.7, -1.3, orientation)
+    assert got[0].shape == (t, codes.shape[0 if orientation == "rows" else 1])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [16, 64])
 @pytest.mark.parametrize("orientation", ["rows", "cols"])
