@@ -6,23 +6,66 @@ The exchange format is a dict of numpy arrays under the key names of
 ORIGINAL item order, ``aggr_prod`` as the full [num, K, K].  Either package
 can then compute from the same state, at any device count: with ``rank``,
 :func:`state_from_numpy` gives one rank its shard of the padded layout.
+The functional model's NamedTuples (``SideState``, ``SideData``,
+``EvalData``, ``EvalState``) cross as numpy arrays in padded order,
+:func:`model_from_numpy`.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
 
 from bpmf_tpu_torch.models.bpmf import (
+    EvalData,
     EvalState,
+    SideData,
     SideState,
-    aggr_pair_indices,
     aggr_prod_full,
+    aggr_prod_pack,
 )
 from bpmf_tpu_torch.ops.mvnormal import HyperParams
+from bpmf_tpu_torch.ops.update import BucketDev
 from bpmf_tpu_torch.parallel.partition import SideMaps
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+__all__ = ["model_from_numpy", "state_from_numpy", "state_to_numpy"]
+
+
+def model_from_numpy(x, device, dtype, splits=()):
+    """The port's ``SideState``, ``SideData``, ``EvalData`` or ``EvalState``
+    from the JAX package's NamedTuple of the same name with numpy arrays in
+    padded order (``jax.device_get`` of it): the same fields on ``device``,
+    floats in ``dtype``, indices as int64.  A ``SideData`` needs its
+    buckets' ``splits``."""
+    kind = type(x).__name__
+
+    def dev(arr):
+        if arr is None:
+            return None
+        arr = np.array(arr)
+        dt = torch.long if np.issubdtype(arr.dtype, np.integer) else dtype
+        return torch.as_tensor(arr, dtype=dt, device=device)
+
+    def tensors(nt):
+        return {n: dev(a) for n, a in nt._asdict().items()}
+
+    if kind == "SideState":
+        fields = tensors(x._replace(hp=None))
+        return SideState(**{**fields, "hp": HyperParams(**tensors(x.hp))})
+    if kind == "SideData":
+        buckets = tuple(
+            BucketDev.from_bucket(
+                types.SimpleNamespace(**b._asdict(), split=split), dtype, device)
+            for b, split in zip(x.buckets, splits, strict=True))
+        return SideData(buckets=buckets, prop_mu=dev(x.prop_mu),
+                        prop_lambda=dev(x.prop_lambda))
+    if kind == "EvalData":
+        return EvalData(**tensors(x))
+    if kind == "EvalState":
+        return EvalState(**tensors(x))
+    raise TypeError(f"no port counterpart for {kind}")
 
 
 def _side_from_numpy(payload: dict, prefix: str, maps: SideMaps, device,
@@ -40,10 +83,8 @@ def _side_from_numpy(payload: dict, prefix: str, maps: SideMaps, device,
 
     aggr_mu = aggr_prod = None
     if f"{prefix}.aggr_mu" in payload:
-        k = payload[f"{prefix}.aggr_mu"].shape[-1]
-        ii, jj = aggr_pair_indices(k)
         aggr_mu = dev(padded(payload[f"{prefix}.aggr_mu"]))
-        aggr_prod = dev(padded(payload[f"{prefix}.aggr_prod"])[:, ii, jj])
+        aggr_prod = dev(aggr_prod_pack(padded(payload[f"{prefix}.aggr_prod"])))
     return SideState(
         items=dev(padded(payload[f"{prefix}.items"])),
         hp=HyperParams(mu=dev(payload[f"{prefix}.hp.mu"]),

@@ -20,10 +20,11 @@ All binary fields are little-endian (x86 reference writes native).  Sparse
 matrices are returned as ``scipy.sparse.csc_matrix`` (the analog of Eigen's
 default column-major SparseMatrix), dense as C-ordered ``numpy.ndarray``.
 
-Copy of ``bpmf_tpu/io/matrix_io.py`` without its optional native C++ fast
-path (``bpmf_tpu.io.native``, still to port): the pure-Python readers and
-writers give the same matrices, so this module is the whole I/O layer of
-the port.
+Copy of ``bpmf_tpu/io/matrix_io.py``.  The binary formats and
+MatrixMarket are read, and the binary formats written, by the native C++
+library (:mod:`bpmf_tpu_torch.io.native`) where it builds; this module is
+the always-available pure-Python implementation, which gives the same
+matrices, and the arbiter of the on-disk layout.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import os
 
 import numpy as np
 import scipy.sparse as sp
+
+from bpmf_tpu_torch.io import native
 
 __all__ = [
     "read_matrix",
@@ -238,12 +241,40 @@ def _write_csv(f, X: np.ndarray) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _read_native(path: str, ext: str):
+    """The native C++ reader's matrix; None where it is unavailable or
+    fails on the file (the pure-Python reader then reads it, or says what
+    is wrong with it)."""
+    if native.get_lib() is None:
+        return None
+    try:
+        if ext in (".mtx", ".mm"):
+            out = native.read_mtx(path)
+            if out[0] == "dense":
+                return out[1]
+            _, nrow, ncol, rows, cols, vals = out
+            return sp.csc_matrix((vals, (rows, cols)), shape=(nrow, ncol))
+        if ext in (".sdm", ".sbm"):
+            nrow, ncol, rows, cols, vals = native.read_sparse_bin(
+                path, pattern=(ext == ".sbm"))
+            return sp.csc_matrix((vals, (rows, cols)), shape=(nrow, ncol))
+        if ext == ".ddm":
+            return native.read_dense_bin(path)
+    except IOError:
+        return None
+    return None
+
+
 def read_matrix(path: str):
     """Read a matrix file; returns csc_matrix for sparse formats,
-    ndarray for dense formats (extension-dispatched like c++/io.cpp:166)."""
+    ndarray for dense formats (extension-dispatched like c++/io.cpp:166).
+    Uses the native C++ reader when available, this module otherwise."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     ext, gz = _split_ext(path)
+    native_out = _read_native(path, ext)
+    if native_out is not None:
+        return native_out
     if ext in (".mtx", ".mm"):
         with _open_read(path, gz, text=True) as f:
             return _read_mtx(f)
@@ -276,10 +307,37 @@ def read_dense(path: str) -> np.ndarray:
     return X
 
 
+def _write_native(path: str, ext: str, gz: bool, X) -> bool:
+    """Write a binary format with the native C++ writer; False where it is
+    unavailable or fails (the pure-Python writer then writes the file)."""
+    if native.get_lib() is None:
+        return False
+    try:
+        if ext in (".sdm", ".sbm"):
+            coo = X.tocoo()
+            order = np.lexsort((coo.row, coo.col))  # column-major like Eigen
+            # .sbm writes every stored entry regardless of value
+            # (c++/io.cpp:655-682)
+            native.write_sparse_bin(
+                path, ext == ".sbm", gz, X.shape[0], X.shape[1],
+                coo.row[order], coo.col[order], coo.data[order])
+            return True
+        if ext == ".ddm":
+            native.write_dense_bin(path, gz, np.asarray(X, np.float64))
+            return True
+    except IOError:
+        return False
+    return False
+
+
 def write_matrix(path: str, X) -> None:
-    """Write a matrix file; format chosen by extension (c++/io.cpp:560)."""
+    """Write a matrix file; format chosen by extension (c++/io.cpp:560).
+    Uses the native C++ writer for the binary formats when available."""
     ext, gz = _split_ext(path)
     sparse = sp.issparse(X)
+    if ext in (".sdm", ".sbm", ".ddm") and (sparse == (ext != ".ddm")):
+        if _write_native(path, ext, gz, X):
+            return
     if ext in (".mtx", ".mm"):
         with _open_write(path, gz, text=True) as f:
             (_write_mtx_sparse if sparse else _write_mtx_dense)(f, X)

@@ -1,7 +1,14 @@
-"""BPMF model state and evaluation (port of ``bpmf_tpu/models/bpmf.py``).
+"""BPMF model: per-side state, half-sweep, prediction, full Gibbs iteration
+(port of ``bpmf_tpu/models/bpmf.py``).
 
 State is NamedTuples of tensors, updated functionally like the JAX package:
 a half-sweep returns a new :class:`SideState`.  No autograd is involved.
+:func:`gibbs_iter` is the library-level way to run one Gibbs iteration on
+the degree buckets without :class:`~bpmf_tpu_torch.sampler.BPMF`: the
+caller builds each side's :class:`SideData` and hands in a draw provider
+(``sampler.TorchDraws`` or ``HostDraws``) where the JAX package takes a
+key.  Tensors live on the caller's device; :func:`init_side_state`
+defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -12,8 +19,9 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from bpmf_tpu_torch.device import resolve_device
 from bpmf_tpu_torch.ops.cholsolve import get_solver
-from bpmf_tpu_torch.ops.mvnormal import HyperParams
+from bpmf_tpu_torch.ops.mvnormal import HyperDraws, HyperParams, sample_hyper
 from bpmf_tpu_torch.ops.update import (
     BucketDev,
     gram_rhs,
@@ -22,16 +30,21 @@ from bpmf_tpu_torch.ops.update import (
 
 __all__ = [
     "SideState",
+    "SideData",
     "EvalData",
     "EvalState",
     "Metrics",
     "aggr_pair_indices",
     "aggr_prod_full",
+    "aggr_prod_pack",
     "aggr_prod_update",
+    "init_side_state",
     "bucket_systems",
     "sweep_core",
+    "half_sweep",
     "predict",
     "predict_deferred",
+    "gibbs_iter",
 ]
 
 
@@ -48,6 +61,15 @@ class SideState(NamedTuple):
     norm: torch.Tensor                     # scalar, sum of squared norms
     aggr_mu: Optional[torch.Tensor] = None    # [num_pad, K]
     aggr_prod: Optional[torch.Tensor] = None  # [num_pad, K(K+1)/2]
+
+
+class SideData(NamedTuple):
+    """One side's constant device data: its degree buckets and, with a
+    propagated posterior, the per-item prior in padded order."""
+
+    buckets: tuple[BucketDev, ...]
+    prop_mu: Optional[torch.Tensor] = None      # [num_pad, K]
+    prop_lambda: Optional[torch.Tensor] = None  # [num_pad, K, K]
 
 
 class EvalData(NamedTuple):
@@ -100,6 +122,33 @@ def aggr_prod_full(packed: np.ndarray, k: int) -> np.ndarray:
     full[..., ii, jj] = packed
     full[..., jj, ii] = packed
     return full
+
+
+def aggr_prod_pack(full):
+    """Inverse of :func:`aggr_prod_full`: the packed [..., K(K+1)/2] of a
+    symmetric [..., K, K] (numpy array or tensor)."""
+    ii, jj = aggr_pair_indices(full.shape[-1])
+    return full[..., ii, jj]
+
+
+def init_side_state(num_pad: int, num_latent: int, dtype, aggregate: bool,
+                    device="cuda") -> SideState:
+    """Zero-init (Sys::init, c++/sample.cpp:179-201) on ``device``, which
+    must exist (``device.resolve_device``)."""
+    k, dev = num_latent, resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return SideState(
+        items=zeros(num_pad, k),
+        hp=HyperParams.init(k, dtype, dev),
+        sum=zeros(k),
+        cov=zeros(k, k),
+        norm=zeros(),
+        aggr_mu=zeros(num_pad, k) if aggregate else None,
+        aggr_prod=zeros(num_pad, k * (k + 1) // 2) if aggregate else None,
+    )
 
 
 def aggr_prod_update(uv: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -184,6 +233,49 @@ def sweep_core(
     return items, s, prod, norm, aggr_mu, aggr_prod
 
 
+def half_sweep(
+    state: SideState,
+    data: SideData,
+    other_items: torch.Tensor,          # [num_other_pad, K], whole
+    hyper: HyperDraws,                  # this side's Normal-Wishart draws
+    noise: torch.Tensor,                # [sum of slots, K] by orig id
+    it: int,
+    *,
+    num: int,
+    mean_rating,
+    alpha: float,
+    burnin: int,
+    splits: Sequence[bool],
+    diagonal_only: bool = False,
+    strict_reference: bool = True,
+    noise_scale: float = 1.0,
+    solver: str = "unrolled",
+    mesh=None,
+) -> SideState:
+    """Resample every item of one side given the other side's items
+    (Sys::sample(Sys&), c++/sample.cpp:341-385;
+    ``bpmf_tpu.models.bpmf.half_sweep``): the hyperprior from the previous
+    sweep's stats and ``hyper`` (drawn with df = K + ``num``), then
+    :func:`~bpmf_tpu_torch.parallel.spmd.sweep_buckets`.  ``num`` is the
+    side's GLOBAL item count, for the hyperprior and the covariance.  With
+    a ``mesh`` (the JAX package's ``psum_axis``) ``state`` and ``data`` are
+    this rank's shard and the stats are summed over the ranks, so the
+    covariance is the exact global one; ``other_items`` is whole on every
+    rank.  ``noise_scale`` scales the noise (0: the posterior mean)."""
+    # spmd imports this module
+    from bpmf_tpu_torch.parallel.spmd import sweep_buckets
+
+    hp = sample_hyper(hyper, num, state.sum, state.cov)
+    if noise_scale != 1.0:
+        noise = noise * noise_scale
+    return sweep_buckets(
+        state, data.buckets, other_items, hp, noise, it, num=num,
+        mean_rating=mean_rating, alpha=alpha, burnin=burnin, splits=splits,
+        diagonal_only=diagonal_only, strict_reference=strict_reference,
+        solver=solver, prop_mu=data.prop_mu, prop_lambda=data.prop_lambda,
+        mesh=mesh)
+
+
 def predict(ev: EvalData, est: EvalState, user_items: torch.Tensor,
             movie_items: torch.Tensor, it: int, *, mean_rating: torch.Tensor,
             burnin: int, mesh=None, nnz_true: Optional[int] = None
@@ -256,3 +348,56 @@ def predict_deferred(ev: EvalData, est: EvalState, users_stack: torch.Tensor,
         rmse.append(r)
         rmse_avg.append(ra)
     return est, torch.stack(rmse), torch.stack(rmse_avg)
+
+
+def gibbs_iter(
+    movies: SideState,
+    users: SideState,
+    est: EvalState,
+    movies_data: SideData,
+    users_data: SideData,
+    ev: EvalData,
+    draws,
+    it: int,
+    *,
+    num_movies: int,
+    num_users: int,
+    mean_rating,
+    alpha: float,
+    burnin: int,
+    movies_splits: Sequence[bool],
+    users_splits: Sequence[bool],
+    diagonal_only: bool = False,
+    strict_reference: bool = True,
+    noise_scale: float = 1.0,
+    solver: str = "unrolled",
+) -> tuple[SideState, SideState, EvalState, Metrics]:
+    """One full Gibbs iteration (c++/bpmf.cpp:184-196;
+    ``bpmf_tpu.models.bpmf.gibbs_iter``): movies given users, users given
+    movies, then evaluation.  ``draws`` is a draw provider
+    (``sampler.TorchDraws``, ``HostDraws``): side s of iteration ``it``
+    takes ``draws.hyper(it, s, num, K, dtype)`` and the noise rows of its
+    bucket slots' original ids, movies s = 0, users s = 1.  The users'
+    hyperprior conditions on their stats from before this iteration, as
+    the sampler's pair draw does."""
+    k, dtype = users.items.shape[-1], users.items.dtype
+    common = dict(mean_rating=mean_rating, alpha=alpha, burnin=burnin,
+                  diagonal_only=diagonal_only,
+                  strict_reference=strict_reference, noise_scale=noise_scale,
+                  solver=solver)
+
+    def sweep(state, data, other_items, side, num, splits):
+        orig = torch.cat([b.orig_ids for b in data.buckets])
+        return half_sweep(state, data, other_items,
+                          draws.hyper(it, side, num, k, dtype),
+                          draws.noise(it, side, orig, num, k, dtype), it,
+                          num=num, splits=splits, **common)
+
+    movies = sweep(movies, movies_data, users.items, 0, num_movies, movies_splits)
+    users = sweep(users, users_data, movies.items, 1, num_users, users_splits)
+    est, rmse, rmse_avg = predict(ev, est, users.items, movies.items, it,
+                                  mean_rating=mean_rating, burnin=burnin)
+    metrics = Metrics(rmse=rmse, rmse_avg=rmse_avg,
+                      norm_users=torch.sqrt(users.norm),
+                      norm_movies=torch.sqrt(movies.norm))
+    return movies, users, est, metrics

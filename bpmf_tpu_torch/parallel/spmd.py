@@ -99,6 +99,7 @@ __all__ = [
     "predict_sharded",
     "reduce_half_sweep",
     "reduce_half_sweep_chunked",
+    "sweep_buckets",
 ]
 
 
@@ -366,12 +367,27 @@ def gather_half_sweep(
     if mesh is not None:
         other_items = (halo_gather(mesh, other_items, *halo)
                        if halo is not None else mesh.all_gather(other_items))
+    return sweep_buckets(
+        state, buckets, other_items, hp, noise, it, num=num,
+        mean_rating=mean_rating, alpha=alpha, burnin=burnin, splits=splits,
+        diagonal_only=diagonal_only, strict_reference=strict_reference,
+        solver=solver, prop_mu=prop_mu, prop_lambda=prop_lambda,
+        ablate=ablate, mesh=mesh)
+
+
+def sweep_buckets(state: SideState, buckets: Sequence[BucketDev],
+                  other_items: torch.Tensor, hp: HyperParams,
+                  noise: torch.Tensor, it: int, *, num: int, burnin: int,
+                  mesh: Optional[Mesh] = None, **systems) -> SideState:
+    """The body of :func:`gather_half_sweep` once the frozen side is whole
+    on this rank: the per-bucket Gram, one combine and solve
+    (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`, ``systems`` its
+    keyword arguments), the scatter, the stats summed over the ranks of
+    ``mesh``, and the covariance with the global ``num``.  Also the body of
+    :func:`~bpmf_tpu_torch.models.bpmf.half_sweep`."""
     items, s, prod, norm, aggr_mu, aggr_prod = sweep_core(
         state.items, state.aggr_mu, state.aggr_prod, buckets, other_items,
-        hp, noise, it, mean_rating=mean_rating, alpha=alpha, burnin=burnin,
-        splits=splits, diagonal_only=diagonal_only,
-        strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
-        prop_lambda=prop_lambda, ablate=ablate)
+        hp, noise, it, burnin=burnin, **systems)
     s, prod, norm = exchange_stats(mesh, s, prod, norm)
     return _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod)
 

@@ -49,13 +49,14 @@ import torch
 from bpmf_tpu_torch import checkpoint
 from bpmf_tpu_torch.config import Config
 from bpmf_tpu_torch.device import resolve_device
-from bpmf_tpu_torch.io import read_matrix, write_matrix
+from bpmf_tpu_torch.io import native, read_matrix, write_matrix
 from bpmf_tpu_torch.models.bpmf import (
     EvalData,
     EvalState,
     Metrics,
     SideState,
     aggr_prod_full,
+    init_side_state,
     predict,
     predict_deferred,
 )
@@ -138,11 +139,14 @@ class TorchDraws:
             h = _splitmix64(h ^ _splitmix64(w))
         return torch.Generator(device=self.device).manual_seed(h)
 
+    def hyper(self, it: int, side: int, n: int, k: int, dtype) -> HyperDraws:
+        """One side's Normal-Wishart draws, with df = K + n."""
+        return draw_hyper(self._generator(it, side, 0), k + n, k, dtype,
+                          self.device)
+
     def hyper_pair(self, it: int, ns: tuple[int, int], k: int, dtype) -> HyperDraws:
-        """Both sides' Normal-Wishart draws, stacked [2, ...]; side s is
-        drawn with df = K + ns[s]."""
-        d = [draw_hyper(self._generator(it, s, 0), k + ns[s], k, dtype,
-                        self.device) for s in (0, 1)]
+        """Both sides' :meth:`hyper` draws, stacked [2, ...]."""
+        d = [self.hyper(it, s, ns[s], k, dtype) for s in (0, 1)]
         return HyperDraws(*(torch.stack(x) for x in zip(*d)))
 
     def noise(self, it: int, side: int, orig_ids: torch.Tensor, num: int,
@@ -160,8 +164,8 @@ class HostDraws(TorchDraws):
         super().__init__(seed, torch.device("cpu"))
         self.target = torch.device(device)
 
-    def hyper_pair(self, it, ns, k, dtype) -> HyperDraws:
-        d = super().hyper_pair(it, ns, k, dtype)
+    def hyper(self, it, side, n, k, dtype) -> HyperDraws:
+        d = super().hyper(it, side, n, k, dtype)
         return HyperDraws(*(x.to(self.target) for x in d))
 
     def noise(self, it, side, orig_ids, num, k, dtype) -> torch.Tensor:
@@ -528,22 +532,10 @@ class BPMF:
         # in the JAX package
         aggregate = bool(cfg.output_dir)
 
-        def init_state(side: Side) -> SideState:
-            k, pn = cfg.num_latent, side.maps.local_pad
-            return SideState(
-                items=torch.zeros((pn, k), dtype=dtype, device=dev),
-                hp=HyperParams.init(k, dtype, dev),
-                sum=torch.zeros(k, dtype=dtype, device=dev),
-                cov=torch.zeros((k, k), dtype=dtype, device=dev),
-                norm=torch.zeros((), dtype=dtype, device=dev),
-                aggr_mu=(torch.zeros((pn, k), dtype=dtype, device=dev)
-                         if aggregate else None),
-                aggr_prod=(torch.zeros((pn, k * (k + 1) // 2), dtype=dtype,
-                                       device=dev) if aggregate else None),
-            )
-
-        self.state_m = init_state(self.movies)
-        self.state_u = init_state(self.users)
+        self.state_m, self.state_u = (
+            init_side_state(side.maps.local_pad, cfg.num_latent, dtype,
+                            aggregate, dev)
+            for side in (self.movies, self.users))
         nnz_t = self.ev.t_val.shape[0]
         self.est = EvalState(
             pavg=torch.zeros(nnz_t, dtype=dtype, device=dev),
@@ -725,6 +717,7 @@ class BPMF:
         self._log(f"device: {self.device} ({name}), dtype {cfg.dtype}"
                   + (f", matmul inputs {md}" if self._md != self.dtype else ""))
         self._log(f"solver: {self.solver}")
+        self._log(f"matrix I/O: {native.status()}")
         if d > 1:
             # assignment unbalance (Sys::assign prints the same idea,
             # c++/assign.cpp:140-173)
@@ -1080,6 +1073,7 @@ class BPMF:
         rep = self.counters.report()
         if rep:
             self._log(rep)
+            self._log(f"matrix I/O: {native.status()}")
         if cfg.profile:
             self._log(self.profile_phases())
         return self.rmse_avg

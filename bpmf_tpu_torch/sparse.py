@@ -22,8 +22,10 @@ everything downstream (Cholesky, solves, sampling) is bucket-independent.
 
 This module is pure numpy and runs once at setup time (the analog of the
 reference's Sys::init + assign, minus inter-node assignment which lives in
-``parallel/partition.py``).  Copy of ``bpmf_tpu/sparse.py`` with its numpy
-bucket fill only (the native fill gives the same arrays).
+``parallel/partition.py``).  Copy of ``bpmf_tpu/sparse.py``: the buckets
+are filled by the native library's ``fill_bucket``
+(:mod:`bpmf_tpu_torch.io.native`) where it builds, item by item in Python
+otherwise, with the same arrays.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
+
+from bpmf_tpu_torch.io import native
 
 __all__ = ["Bucket", "BucketedSide", "bucketize", "pad_count"]
 
@@ -142,6 +146,12 @@ def bucketize(
     buckets: list[Bucket] = []
     total_nnz = 0
 
+    fill_native = native.get_lib() is not None
+    if fill_native:
+        indptr64 = np.ascontiguousarray(indptr, dtype=np.int64)
+        indices32 = np.ascontiguousarray(indices, dtype=np.int32)
+        data64 = np.ascontiguousarray(data, dtype=np.float64)
+
     for wi, w in enumerate(widths):
         in_b = which == wi
         ids = item_ids[in_b]
@@ -164,19 +174,24 @@ def bucketize(
         # rows are all-masked anyway (their Gram/rhs partials are zero).
         rslot = np.full((n_rows,), n_slots - 1, dtype=np.int32)
 
-        r = 0
-        for slot, gid in enumerate(ids):
-            s, e = indptr[gid], indptr[gid + 1]
-            # row-split neighbor lists wider than the bucket width
-            for off in range(0, max(e - s, 1), w):
-                a = s + off
-                b = min(s + off + w, e)
-                ln = b - a
-                nbr[r, :ln] = indices[a:b]
-                val[r, :ln] = data[a:b]
-                mask[r, :ln] = 1.0
-                rslot[r] = slot
-                r += 1
+        if fill_native and ids.size:
+            native.fill_bucket(indptr64, indices32, data64,
+                               np.ascontiguousarray(ids, np.int32), w,
+                               nbr, val, mask, rslot)
+        else:
+            r = 0
+            for slot, gid in enumerate(ids):
+                s, e = indptr[gid], indptr[gid + 1]
+                # row-split neighbor lists wider than the bucket width
+                for off in range(0, max(e - s, 1), w):
+                    a = s + off
+                    b = min(s + off + w, e)
+                    ln = b - a
+                    nbr[r, :ln] = indices[a:b]
+                    val[r, :ln] = data[a:b]
+                    mask[r, :ln] = 1.0
+                    rslot[r] = slot
+                    r += 1
 
         # sort real rows by first neighbor id: gathers then touch the
         # neighbor table in roughly ascending order, which improves HBM

@@ -8,8 +8,9 @@ Phases, each printing JSON lines:
   1. device   torch/CUDA versions, the card, its power limit
   2. build    nvcc builds the seven kernel libraries of bpmf_tpu_torch/csrc
               (the megakernel's bf16 instances and the tensor-core Gram of
-              bf16 operands in two of their own), all at once; each
-              kernel's registers and spill bytes (ptxas)
+              bf16 operands in two of their own), and g++ the native matrix
+              I/O (bpmf_tpu_torch/io/native), all at once; each kernel's
+              registers and spill bytes (ptxas); native.status()
   3. kernel   the megakernel (#1), and the megakernel streaming a hoisted
               operand (#2) in the tight and the 8-aligned layout, against
               their plain PyTorch versions at the padded ml-1m shape
@@ -216,6 +217,19 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               rmse_avg, then #3/#4 on its own codes and last state; each
               Gram row beside its dense floor, 2 items frozen (T + 2K) at
               BF16_MMA_FLOPS_PER_S
+  27. api    the functional model API (bpmf_tpu_torch.models): gibbs_iter
+              with solver "smart" (#8 twice an iteration) on ml-1m synth,
+              K=32, each side's SideData built with parallel.partition,
+              against BPMF with gram_impl="bucketed", both on
+              HostDraws(seed): 2 halves of 250 iterations each, the first 3
+              iterations within CHAIN_TOL, both rmse_avg within API_BAND of
+              each other and RMSE_BAND of 0.5306, launches counted, both
+              ms/iter; then the native matrix I/O: the ml-1m train matrix
+              written by the Python writer as .sdm, .sdm.gz and .mtx, read
+              natively and in Python (equal), and sparse.bucketize of the
+              ml-25M half-scale matrix (both sides) filled natively and in
+              Python (equal), each in host seconds with the host's CPU;
+              native.status() must read native
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -240,6 +254,7 @@ import contextlib
 import io
 import json
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -277,6 +292,9 @@ RMSE_AVG_ML25M_HALF = 1.0902     # BENCH_r05.json, the ml-25M half-scale leg
 OFFGRID_BAND = 0.005             # two routes of one chain, other rounding
 GRID_BAND = 0.005                # the same, for phase 22's chains
 WIDE_BAND = 0.005                # the same, for phase 23's K=40 chains
+API_BAND = 1e-3                  # phase 27: gibbs_iter against BPMF's
+                                 # bucketed chain, the same draws, other
+                                 # rounding (test order, hyperprior batching)
 MULTI_TOL = 1e-6                 # phase 24 (a): the same kernels on the same
                                  # inputs; relative to the largest magnitude
 MULTI_BAND = 0.005               # phase 24 (b): 2 ranks against 1, other
@@ -1250,6 +1268,182 @@ def reduce_phase(train, test, counts, total, tag, devnull, device="cuda", k=K,
     return lines, time.perf_counter() - t_phase
 
 
+def cpu_name():
+    """The host CPU, which every host-seconds number names: its model name
+    from /proc/cpuinfo (vendor, family and model where the name is
+    hidden), the architecture and the cores this process may use."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in fields) or "model not shown"
+    return f"{name} ({platform.machine()}, {len(os.sched_getaffinity(0))} cores)"
+
+
+def api_phase(train, test, btrain, counts, total, tag, devnull, device="cuda",
+              k=K, iters=500):
+    """Phase 27: the functional model API and the native matrix I/O.  (a)
+    ``models.gibbs_iter`` (solver "smart": #8 twice an iteration) on each
+    side's ``SideData`` built with ``parallel.partition`` as a user would,
+    against ``BPMF(gram_impl="bucketed", solver="smart")``, both drawing
+    from ``HostDraws(seed)``: the first 3 iterations within CHAIN_TOL, after
+    ``iters`` both rmse_avg within API_BAND of each other and RMSE_BAND of
+    RMSE_AVG_JAX, and both chains' ms/iter (the second half of each).  (b)
+    the ml-1m train matrix written as .sdm, .sdm.gz and .mtx by the Python
+    writer, each read by the native and the Python reader (equal), and
+    ``sparse.bucketize`` of ``btrain`` (both sides) filled natively and in
+    Python (equal), each in host seconds; ``native.status()`` must read
+    native.  ``device``, ``k`` and ``iters`` exist for a rehearsal on the
+    CPU at a small size (where the RMSE_AVG_JAX gate does not apply).
+    Returns the phase's lines and its seconds."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from bpmf_tpu_torch import Config, models
+    from bpmf_tpu_torch.io import matrix_io, native
+    from bpmf_tpu_torch.parallel import partition as part
+    from bpmf_tpu_torch.sampler import BPMF, HostDraws, rank_buckets
+    from bpmf_tpu_torch.sparse import bucketize
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    lines = []
+    status = native.status()
+    assert status.startswith("native "), status
+    host = {**tag, "host_cpu": cpu_name()}
+
+    # (a) the API chain against BPMF's bucketed chain, the same draws
+    cfg = Config(num_latent=k, burnin=2, nsims=iters, gram_impl="bucketed",
+                 solver="smart")
+    half = iters // 2
+
+    def halves(run):
+        """``run(n)`` twice, n = half of ``iters`` then the rest, each ending
+        in a host sync; (metrics [iters, 4], ms/iter of the second run)."""
+        first = run(half)
+        t0 = time.perf_counter()
+        second = run(iters - half)
+        ms = (time.perf_counter() - t0) / (iters - half) * 1e3
+        return np.concatenate([first, second]), ms
+
+    mats = {"movies": train.tocsc(), "users": sp.csc_matrix(train.T)}
+    maps = {s: part.make_maps(part.assign_items(np.diff(m.indptr), 1), m.shape[1])
+            for s, m in mats.items()}
+    data, splits = {}, {}
+    for s, o in (("movies", "users"), ("users", "movies")):
+        layout = part.build_gather_layout(mats[s], maps[s], maps[o].orig_to_padded,
+                                          cfg.max_bucket_width, cfg.bucket_growth)
+        data[s] = models.SideData(buckets=rank_buckets(layout.buckets, 0,
+                                                       torch.float32, dev))
+        splits[s] = layout.splits
+    state = {s: models.init_side_state(maps[s].padded_num, k, torch.float32,
+                                       False, dev) for s in mats}
+    tcoo = test.tocoo()
+    ev = models.EvalData(
+        t_user=torch.as_tensor(maps["users"].orig_to_padded[tcoo.row], device=dev),
+        t_item=torch.as_tensor(maps["movies"].orig_to_padded[tcoo.col], device=dev),
+        t_val=torch.as_tensor(tcoo.data, dtype=torch.float32, device=dev))
+    est = models.EvalState(pavg=torch.zeros(test.nnz, device=dev),
+                           pm2=torch.zeros(test.nnz, device=dev))
+    mean = torch.as_tensor(train.sum() / train.nnz, dtype=torch.float32,
+                           device=dev)
+    draws = HostDraws(cfg.seed, dev)
+    kw = dict(num_movies=maps["movies"].num, num_users=maps["users"].num,
+              mean_rating=mean, alpha=cfg.alpha, burnin=cfg.burnin,
+              movies_splits=splits["movies"], users_splits=splits["users"],
+              solver="smart")
+
+    done = 0
+
+    def api_run(n):
+        """n iterations of gibbs_iter, one host sync at the end, as
+        BPMF.run_chunk."""
+        nonlocal est, done
+        mets = []
+        for it in range(done, done + n):
+            state["movies"], state["users"], est, met = models.gibbs_iter(
+                state["movies"], state["users"], est, data["movies"],
+                data["users"], ev, draws, it, **kw)
+            mets.append(torch.stack(met))
+        done += n
+        return torch.stack(mets).cpu().numpy()
+
+    counts.reset()
+    api_mets, api_ms = halves(api_run)
+    api_n = counts.read()
+    sampler = BPMF(cfg, train, test, out=devnull, device=dev,
+                   draws=HostDraws(cfg.seed, dev))
+    sampler.setup()
+    assert sampler.movies.impl == sampler.users.impl == "bucketed"
+    for s, name in (("movies", "movs"), ("users", "users")):
+        want = [b.nbr.shape for b in sampler._aux[name].buckets]
+        assert [b.nbr.shape for b in data[s].buckets] == want, (s, want)
+    counts.reset()
+    bpmf_mets, bpmf_ms = halves(lambda n: np.stack(sampler.run_chunk(n), 1))
+    bpmf_n = counts.read()
+    del sampler
+    if dev.type == "cuda":
+        assert api_n == launches(blast=2 * iters), api_n
+        assert bpmf_n == launches(blast=2 * iters), bpmf_n
+        total["blast"] += api_n["blast"] + bpmf_n["blast"]
+    assert np.isfinite(api_mets).all() and np.isfinite(bpmf_mets).all()
+    np.testing.assert_allclose(api_mets[:3], bpmf_mets[:3], **CHAIN_TOL)
+    api_avg, bpmf_avg = float(api_mets[-1, 1]), float(bpmf_mets[-1, 1])
+    line = {"phase": "api", "chain": "ml-1m synth bucketed", "k": k,
+            "iterations": iters, "solver": "smart", "launches": api_n,
+            "bpmf_launches": bpmf_n, "rmse_avg": api_avg,
+            "bpmf_rmse_avg": bpmf_avg, "rmse_avg_jax": RMSE_AVG_JAX,
+            "first_3_max_abs_err": float(np.abs(api_mets[:3] - bpmf_mets[:3]).max()),
+            "tolerance": CHAIN_TOL, "band": API_BAND,
+            "ms_per_iter": api_ms, "bpmf_ms_per_iter": bpmf_ms,
+            "timed": f"iterations {half}-{iters - 1}, host clock, one sync",
+            **tag}
+    lines.append(line)
+    assert abs(api_avg - bpmf_avg) <= API_BAND, line
+    if dev.type == "cuda":
+        assert abs(api_avg - RMSE_AVG_JAX) <= RMSE_BAND, line
+
+    # (b) the native matrix I/O against Python, host seconds
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in ("sdm", "sdm.gz", "mtx"):
+            path = os.path.join(tmp, "train." + ext)
+            with env(BPMF_NO_NATIVE="1"):
+                _, write_s = timed(matrix_io.write_matrix, path, train)
+                py, py_s = timed(matrix_io.read_matrix, path)
+            nat, nat_s = timed(matrix_io.read_matrix, path)
+            assert nat.shape == py.shape == train.shape and nat.nnz == train.nnz
+            assert (nat != py).nnz == 0 and (nat != train).nnz == 0, ext
+            lines.append({"phase": "api", "read": ext, "bytes": os.path.getsize(path),
+                          "nnz": int(nat.nnz), "native_s": nat_s, "python_s": py_s,
+                          "python_write_s": write_s, "equal": True, **host})
+    fields = ("nbr", "val", "mask", "row_slot", "item_ids", "orig_ids", "slot_valid")
+    for name, m in (("movies", btrain.tocsc()), ("users", sp.csc_matrix(btrain.T))):
+        ids = np.arange(m.shape[1], dtype=np.int32)
+        args = (m, ids, -1, 8, cfg.max_bucket_width, 8, cfg.bucket_growth)
+        nat, nat_s = timed(bucketize, *args)
+        with env(BPMF_NO_NATIVE="1"):
+            py, py_s = timed(bucketize, *args)
+        assert len(nat.buckets) == len(py.buckets)
+        for a, b in zip(nat.buckets, py.buckets):
+            assert a.split == b.split
+            for f in fields:
+                assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+        lines.append({"phase": "api", "bucketize": name, "items": int(m.shape[1]),
+                      "nnz": int(m.nnz), "buckets": len(nat.buckets),
+                      "native_s": nat_s, "python_s": py_s, "equal": True, **host})
+    lines.append({"phase": "api", "native_status": status, **host})
+    return lines, time.perf_counter() - t_phase
+
+
 def main():
     import numpy as np
     import torch
@@ -1259,6 +1453,7 @@ def main():
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     from bpmf_tpu_torch import Config, synth_chembl, synth_movielens
+    from bpmf_tpu_torch.io import native
     from bpmf_tpu_torch.ops import dense8 as d8
     from bpmf_tpu_torch.ops import pallas_solve as ps
     from bpmf_tpu_torch.ops._build import build
@@ -1294,13 +1489,18 @@ def main():
           "nvidia_smi": smi})
     tag = {"device": card, "nvidia_smi": smi}
 
-    # 2. build, one nvcc per source, all started together
+    # 2. build, one nvcc per source and the native matrix I/O's g++, all
+    # started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(LIBS) + 1) as pool:
+        io_status = pool.submit(native.status)
         built = dict(zip(LIBS, pool.map(build, LIBS)))
+        io_status = io_status.result()
+    assert io_status.startswith("native "), io_status
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": {n: os.path.relpath(lib, ROOT) for n, (lib, _) in built.items()},
-          "ptxas": {n: ptxas_summary(rep) for n, (_, rep) in built.items()}})
+          "ptxas": {n: ptxas_summary(rep) for n, (_, rep) in built.items()},
+          "native_io": io_status})
 
     # 3. the megakernels against plain: #1, and #2 in both layouts
     cs, cb, alpha = 2.0, -7.2, 2.0
@@ -2911,7 +3111,7 @@ def main():
         emit({**line, "rmse_avg_jax_tpu_bf16": anchor, "band": RMSE_BAND})
         del sampler
         assert abs(line["rmse_avg"] - anchor) <= RMSE_BAND, (chain, line, anchor)
-    del btrain, btest
+    del btest   # btrain stays for phase 27's bucketize
     # one chain each for the other bf16 instances, 3 iterations against the
     # plain chain: #2 in both layouts (K=32), #3 and #4 (the K=64 split
     # route), and the off-grid fused dense chain (bf16 blocks, #5)
@@ -2972,6 +3172,13 @@ def main():
                headline=False, inputs="chembl_bf16_chain", side=side.name)
     del sampler, ctrain, ctest
     emit({"phase": "bf16", "phase_s": time.perf_counter() - t26, **tag})
+
+    # 27. the functional model API's chain against BPMF's bucketed chain,
+    # and the native matrix I/O against Python
+    lines, api_s = api_phase(train, test, btrain, counts, total, tag, devnull)
+    for line in lines:
+        emit({**line, "phase_s": api_s})
+    del btrain
 
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"

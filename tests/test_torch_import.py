@@ -48,6 +48,11 @@ def test_imports_without_jax_or_triton():
         import bpmf_tpu_torch.profile_chain
         import bpmf_tpu_torch.config, bpmf_tpu_torch.datasets
         import bpmf_tpu_torch.io, bpmf_tpu_torch.io.matrix_io
+        import bpmf_tpu_torch.io.native
+        from bpmf_tpu_torch.models import (
+            EvalData, EvalState, Metrics, SideData, SideState, gibbs_iter,
+            half_sweep, init_side_state, predict)
+        from bpmf_tpu_torch.convert import model_from_numpy
         import bpmf_tpu_torch.sparse, bpmf_tpu_torch.parallel.partition
         import bpmf_tpu_torch.utils, bpmf_tpu_torch.utils.counters
         import bpmf_tpu_torch.ops.cholsolve

@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from bpmf_tpu_torch.config import Config
-from bpmf_tpu_torch.ops.mvnormal import HyperDraws
-from bpmf_tpu_torch.sampler import BPMF
+from bpmf_tpu_torch.models import SideData, half_sweep, init_side_state
+from bpmf_tpu_torch.ops.mvnormal import HyperDraws, draw_hyper
+from bpmf_tpu_torch.ops.update import item_noise
+from bpmf_tpu_torch.sampler import BPMF, rank_buckets
 
 
 class RecordedDraws:
@@ -368,3 +370,23 @@ def collective_shapes(mesh, jobs: dict) -> dict:
         out["local_pad"] = {side.name: side.maps.local_pad
                             for side in (s.movies, s.users)}
     return out
+
+
+def api_half_sweep(mesh, buckets, splits, local_pad, other, num, mean) -> dict:
+    """One movies ``half_sweep`` in float64 on this rank's shard (``mesh``
+    None: one device) of stacked host buckets, from zero state, the whole
+    frozen table ``other`` and draws from fixed seeds: this rank's items
+    and the side's stats."""
+    rank = 0 if mesh is None else mesh.rank
+    dtype, k = torch.float64, other.shape[1]
+    data = SideData(buckets=rank_buckets(buckets, rank, dtype, "cpu"))
+    orig = torch.cat([b.orig_ids for b in data.buckets])
+    out = half_sweep(
+        init_side_state(local_pad, k, dtype, False, device="cpu"), data,
+        torch.from_numpy(other),
+        draw_hyper(torch.Generator().manual_seed(3), k + num, k, dtype, "cpu"),
+        item_noise(torch.Generator().manual_seed(4), orig, num, k, dtype), 1,
+        num=num, mean_rating=mean, alpha=2.0, burnin=0, splits=splits,
+        solver="xla", mesh=mesh)
+    return {"items": out.items.numpy(),
+            "stats": {f: getattr(out, f).numpy() for f in ("sum", "cov", "norm")}}
