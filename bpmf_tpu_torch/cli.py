@@ -126,8 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", default="", metavar="NAME",
                    help="a JAX platform; this package takes --device")
     p.add_argument("--device", default="cuda",
-                   help="torch device, 'cuda' (default) or 'cpu'; there is "
-                        "no fallback between them")
+                   help="torch device, 'cuda' (default: a GPU a rank) or "
+                        "'cpu'; 'cuda:<i>' puts every rank of this host on "
+                        "GPU i, over gloo; there is no fallback between them")
     return p
 
 
@@ -189,15 +190,23 @@ def main(argv=None) -> int:
     mesh = None if spec else pm.mesh_from_env(args.device)  # a rank of torchrun
     if mesh is not None:
         return _run_rank(cfg, args.device, mesh)
+    # a GPU named by its index (--device cuda:<i>) holds every rank of this
+    # host, over gloo: NCCL refuses two ranks on one GPU
+    shared = pm.shared_gpu(args.device)
+    backend = "gloo" if shared else None
+
+    def host_ranks(n: int) -> int:
+        # a shared GPU, as the CPU, takes any number of ranks (0: one)
+        return pm.resolve_n_devices(n, "cpu" if shared else args.device)
+
     try:
         if spec is None:
-            n = pm.resolve_n_devices(cfg.n_devices, args.device)
+            n = host_ranks(cfg.n_devices)
             per, offset = n, 0
         else:
-            n = cfg.n_devices or spec.num_processes * pm.resolve_n_devices(
-                0, args.device)
+            n = cfg.n_devices or spec.num_processes * host_ranks(0)
             per, offset = pm.dist_ranks(n, spec)
-            pm.resolve_n_devices(per, args.device)   # this host's share
+            host_ranks(per)   # this host's share
     except ValueError as e:
         print(f"bpmf: error: {e}", file=sys.stderr)
         return 1
@@ -206,15 +215,16 @@ def main(argv=None) -> int:
     init = spec.init_method if spec else None
     if per == 1 and spec is not None:
         # one rank in this process: it joins the group itself
-        mesh = pm.init_mesh(offset, n, init, args.device, local=0)
+        mesh = pm.init_mesh(offset, n, init, args.device, backend, local=0)
         return _run_rank(cfg, args.device, mesh)
     from bpmf_tpu_torch.parallel.launch import run_ranks
 
     threads = (max(1, (os.cpu_count() or 1) // per)
                if args.device == "cpu" else None)
     try:
-        codes = run_ranks(_rank, per, argv, device=args.device, threads=threads,
-                          rank_offset=offset, world_size=n, init_method=init)
+        codes = run_ranks(_rank, per, argv, device=args.device, backend=backend,
+                          threads=threads, rank_offset=offset, world_size=n,
+                          init_method=init)
     except RuntimeError as e:
         print(f"bpmf: error: {e}", file=sys.stderr)
         return 1

@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 __all__ = ["DistSpec", "Mesh", "dist_ranks", "dist_spec", "free_port",
-           "init_mesh", "mesh_from_env", "resolve_n_devices"]
+           "init_mesh", "mesh_from_env", "resolve_n_devices", "shared_gpu"]
 
 # a rank that waits this long in a collective gives up (a peer has died)
 TIMEOUT = datetime.timedelta(seconds=600)
@@ -169,6 +169,15 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def shared_gpu(device) -> bool:
+    """True when ``device`` names one GPU by its index (``cuda:<i>``): every
+    rank of the host then takes that GPU, over gloo, since NCCL refuses two
+    ranks on one GPU (``run_ranks(..., device="cuda:0", backend="gloo")``,
+    the CLI's ``--device cuda:0``)."""
+    dev = torch.device(device)
+    return dev.type == "cuda" and dev.index is not None
 
 
 def _rank_device(device, local: int) -> torch.device:

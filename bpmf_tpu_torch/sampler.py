@@ -12,13 +12,14 @@ or the split pipeline, :func:`~bpmf_tpu_torch.ops.dense8.d8_route`) for
 float32 ratings on an exact grid; else the dense adjacency while it fits
 ``dense_limit_bytes`` (fused with the packed-triangle solve where that is
 eligible), and the degree buckets beyond.  Iterations run as a Python loop
-with one host sync per chunk.  At D > 1 ranks a dense8 side takes the
-sharded sweep (the split pipeline, in gather and in reduce mode), the dense
-routes run in gather mode, and the buckets in gather mode (an all_gather
-of the frozen side, or the halo ring) or in reduce mode (the partial
-statistics reduce-scattered onto their owners, or all-reduced one
-destination at a time in the chunked form); the evaluation is
-entry-sharded.
+with one host sync per chunk, each through :meth:`BPMF.iter_fn`, the
+iteration as a function of explicit state (the JAX package's ``_iter``).
+At D > 1 ranks a dense8 side takes the sharded sweep (the split pipeline,
+in gather and in reduce mode), the dense routes run in gather mode, and
+the buckets in gather mode (an all_gather of the frozen side, or the halo
+ring) or in reduce mode (the partial statistics reduce-scattered onto
+their owners, or all-reduced one destination at a time in the chunked
+form); the evaluation is entry-sharded.
 
 bf16 matmul inputs (``Config.matmul_dtype="bfloat16"``; ``auto`` stays
 float32 here, as the JAX package resolves it off a TPU) run on every route
@@ -786,14 +787,14 @@ class BPMF:
         if type(self.draws) is TorchDraws:
             self.draws = TorchDraws(seed, self.device)
 
-    def _sweep(self, side: Side, state: SideState, other_items, hp, it):
+    def _sweep(self, side: Side, state: SideState, other_items, hp, draws, it):
         """One half-sweep on the side's route (over the ranks of the mesh at
         D > 1: the sharded dense8 sweep, gather mode, or reduce mode on the
-        buckets).  Noise rows are keyed by original id: the rank's padded
-        slots of a dense8 or dense side and of a bucketed side in reduce
-        mode, its concatenated bucket slots of a bucketed side in gather
-        mode (``bpmf_tpu/parallel/spmd.py:712``, ``:1180``); zeros under
-        ``ablate="nonoise"``."""
+        buckets).  Noise rows come from ``draws``, keyed by original id: the
+        rank's padded slots of a dense8 or dense side and of a bucketed side
+        in reduce mode, its concatenated bucket slots of a bucketed side in
+        gather mode (``bpmf_tpu/parallel/spmd.py:712``, ``:1180``); zeros
+        under ``ablate="nonoise"``."""
         cfg = self.cfg
         aux = self._aux[side.name]
         bucketed = side.exchange in ("gather", "halo")
@@ -803,8 +804,8 @@ class BPMF:
             noise = torch.zeros((ids.shape[0], cfg.num_latent), dtype=self.dtype,
                                 device=self.device)
         else:
-            noise = self.draws.noise(it, 0 if side is self.movies else 1, ids,
-                                     side.num, cfg.num_latent, self.dtype)
+            noise = draws.noise(it, 0 if side is self.movies else 1, ids,
+                                side.num, cfg.num_latent, self.dtype)
         if side.impl == "bucketed":
             common = dict(
                 num=side.num, mean_rating=self._mean_rating, alpha=cfg.alpha,
@@ -859,46 +860,64 @@ class BPMF:
             prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda, mesh=self.mesh,
             **common)
 
-    def _predict(self, it: int, dtype=None):
-        """The evaluation of iteration ``it`` on the current tables, taken
-        in ``dtype`` (the final pass: the matmul dtype): entry-sharded at
-        D > 1 (``bpmf_tpu/sampler.py:649-660``)."""
+    def _predict(self, est: EvalState, users: torch.Tensor,
+                 movies: torch.Tensor, it: int, dtype=None):
+        """The evaluation of iteration ``it`` on the factor tables ``users``
+        and ``movies`` from the Welford state ``est``, the tables taken in
+        ``dtype`` (the final pass: the matmul dtype): entry-sharded at D > 1
+        (``bpmf_tpu/sampler.py:762-778``).  Returns (est, rmse, rmse_avg)."""
         kw = dict(mean_rating=self._mean_rating, burnin=self.cfg.burnin)
-        users = self.state_u.items.to(dtype or self.dtype)
-        movies = self.state_m.items.to(dtype or self.dtype)
+        users = users.to(dtype or self.dtype)
+        movies = movies.to(dtype or self.dtype)
         if self.mesh is not None:
-            return predict_sharded(self.mesh, self.ev, self.est, users, movies,
-                                   it, nnz_true=len(self.t_val), **kw)
-        return predict(self.ev, self.est, users, movies, it, **kw)
+            return predict_sharded(self.mesh, self.ev, est, users, movies, it,
+                                   nnz_true=len(self.t_val), **kw)
+        return predict(self.ev, est, users, movies, it, **kw)
 
-    def _iter(self, it: int, skip_predict: bool = False) -> Metrics:
-        """One full Gibbs iteration (c++/bpmf.cpp:184-196): both hyperprior
-        draws first (each conditions on its side's previous stats), then
-        movies given users, users given movies, then evaluation.  Under
+    def iter_fn(self, state_m: SideState, state_u: SideState, est: EvalState,
+                draws, it: int, skip_predict: bool = False
+                ) -> tuple[SideState, SideState, EvalState, Metrics]:
+        """One full Gibbs iteration as a function of explicit state, the JAX
+        package's ``_iter`` (``bpmf_tpu/sampler.py:783-832``; c++/bpmf.cpp:
+        184-196): both hyperprior draws first (each conditions on its side's
+        previous stats), then movies given users, users given movies, then
+        evaluation.  ``draws`` (a draw provider: :class:`TorchDraws`,
+        :class:`HostDraws`) takes the place of the JAX key.  Under
         ``ablate="nohyper"`` both sides take ``HyperParams.init`` (mu = 0,
         Lambda = I) and no pair is drawn; under ``nopredict`` (or with
-        ``skip_predict``, the deferred evaluation) the Welford state stays
-        and both RMSE read 0."""
+        ``skip_predict``, the deferred evaluation) ``est`` is returned as it
+        came and both RMSE read 0.
+
+        Bound only to what :meth:`setup` fixed (routes, device data, codes,
+        maps, priors, halo layouts, the test entries, the mesh): it reads
+        and writes none of ``state_m``/``state_u``/``est``/``iter`` of the
+        sampler, and reads no result back (no ``.item()``, no ``.cpu()``),
+        so the caller decides when to sync (the host syncs it makes are
+        counted by ``chip_smoke.py`` phase 28).  It consumes none of its
+        inputs: every state
+        it returns is new tensors and none of its arguments is written (the
+        JAX package donates them; here nothing is copied to spare them).
+        Returns (state_m, state_u, est, metrics), the metrics 0-d tensors
+        on the device."""
         cfg = self.cfg
-        sm, su = self.state_m, self.state_u
         if "nohyper" in self._ablates:
             hp_m = hp_u = HyperParams.init(cfg.num_latent, self.dtype, self.device)
         else:
-            d = self.draws.hyper_pair(it, (self.movies.num, self.users.num),
-                                      cfg.num_latent, self.dtype)
+            d = draws.hyper_pair(it, (self.movies.num, self.users.num),
+                                 cfg.num_latent, self.dtype)
             hp_m, hp_u = sample_hyper_pair(d, self._ns,
-                                           torch.stack([sm.sum, su.sum]),
-                                           torch.stack([sm.cov, su.cov]))
-        sm = self._sweep(self.movies, sm, su.items, hp_m, it)
-        su = self._sweep(self.users, su, sm.items, hp_u, it)
-        self.state_m, self.state_u = sm, su
+                                           torch.stack([state_m.sum, state_u.sum]),
+                                           torch.stack([state_m.cov, state_u.cov]))
+        state_m = self._sweep(self.movies, state_m, state_u.items, hp_m, draws, it)
+        state_u = self._sweep(self.users, state_u, state_m.items, hp_u, draws, it)
         if skip_predict or "nopredict" in self._ablates:
             rmse = rmse_avg = torch.zeros((), dtype=self.dtype, device=self.device)
         else:
-            self.est, rmse, rmse_avg = self._predict(it)
-        return Metrics(rmse=rmse, rmse_avg=rmse_avg,
-                       norm_users=torch.sqrt(su.norm),
-                       norm_movies=torch.sqrt(sm.norm))
+            est, rmse, rmse_avg = self._predict(est, state_u.items,
+                                                state_m.items, it)
+        return state_m, state_u, est, Metrics(
+            rmse=rmse, rmse_avg=rmse_avg, norm_users=torch.sqrt(state_u.norm),
+            norm_movies=torch.sqrt(state_m.norm))
 
     def defer_group(self, n: int) -> int:
         """Iterations per deferred evaluation in a chunk of ``n``
@@ -935,7 +954,10 @@ class BPMF:
             tables, group = [], []
             for _ in range(m):
                 self.iter += 1
-                group.append(self._iter(self.iter, skip_predict=g > 1))
+                self.state_m, self.state_u, self.est, met = self.iter_fn(
+                    self.state_m, self.state_u, self.est, self.draws, self.iter,
+                    skip_predict=g > 1)
+                group.append(met)
                 if g > 1:
                     tables.append((self.state_u.items, self.state_m.items))
             if g > 1:
@@ -1053,7 +1075,8 @@ class BPMF:
         # final prediction pass (c++/bpmf.cpp:225,242): one more Welford
         # update with the last sample, its tables in the matmul dtype
         # (bpmf_tpu/sampler.py:1204-1210)
-        self.est, rmse, rmse_avg = self._predict(self.iter, self._md)
+        self.est, rmse, rmse_avg = self._predict(
+            self.est, self.state_u.items, self.state_m.items, self.iter, self._md)
         self.rmse = float(rmse)
         self.rmse_avg = float(rmse_avg)
 

@@ -230,6 +230,22 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               ml-25M half-scale matrix (both sides) filled natively and in
               Python (equal), each in host seconds with the host's CPU;
               native.status() must read native
+  28. entry  the entry points (bpmf_tpu_torch.entry) and the pure
+              iteration BPMF.iter_fn: (a) entry()'s function (the tiny
+              chain, K=16, #1) twice on cloned inputs, bitwise equal and
+              finite, beside the same call through the plain versions at
+              CHAIN_TOL; (b) phase 4's ml-1m K=32 chain on #1, 2 chunks of
+              50 through an iter_fn loop and through BPMF.run_chunk from the
+              same state on the same TorchDraws: bitwise equal, finite, both
+              ms/iter; (c) the host syncs of one iter_fn call on #1 and on
+              the bucketed route (#8), counted under
+              torch.cuda.set_sync_debug_mode("warn") with their file:line
+              (measured, not gated); (d) dryrun_multichip(2): two gloo ranks
+              on the one GPU started once for its five legs, each leg's two
+              steps within ENTRY_LEG_TOL of the one-device tiny chain and its
+              kernels counted (#3 + #5 on the dense8 legs, #8 on the
+              buckets), then its two processes under BPMF_DIST, whose final
+              line must equal one process of two ranks (--device cuda:0)
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -292,6 +308,9 @@ RMSE_AVG_ML25M_HALF = 1.0902     # BENCH_r05.json, the ml-25M half-scale leg
 OFFGRID_BAND = 0.005             # two routes of one chain, other rounding
 GRID_BAND = 0.005                # the same, for phase 22's chains
 WIDE_BAND = 0.005                # the same, for phase 23's K=40 chains
+ENTRY_LEG_TOL = 1e-4             # phase 28 (d): a dryrun leg's two steps
+                                 # against the one-device tiny chain (the
+                                 # JAX package's one-trajectory invariant)
 API_BAND = 1e-3                  # phase 27: gibbs_iter against BPMF's
                                  # bucketed chain, the same draws, other
                                  # rounding (test order, hyperprior batching)
@@ -499,11 +518,9 @@ class Counts:
         #3/#4 (gram_*), each also on bf16 operands (*_bf16), #5/#6 and
         their grouped variants #7 (solve_*), #8, #9 (probe_A, probe_B,
         probe_C)."""
-        sl = self.ps.solve_launches
-        return {**{"fused_" + n: c for n, c in self.d8.sweep_launches.items()},
-                **{"gram_" + n: c for n, c in self.d8.gram_launches.items()},
-                **{"solve_" + n: c for n, c in sl.items() if n != "blast"},
-                "blast": sl["blast"],
+        from bpmf_tpu_torch.ops import launch_counts
+
+        return {**launch_counts(),
                 **{"probe_" + n: c for n, c in self.gp.launches.items()}}
 
 
@@ -1441,6 +1458,237 @@ def api_phase(train, test, btrain, counts, total, tag, devnull, device="cuda",
                       "nnz": int(m.nnz), "buckets": len(nat.buckets),
                       "native_s": nat_s, "python_s": py_s, "equal": True, **host})
     lines.append({"phase": "api", "native_status": status, **host})
+    return lines, time.perf_counter() - t_phase
+
+
+def host_syncs(sampler, it):
+    """The host syncs of one ``iter_fn`` call on the sampler's state (after
+    a warm call), as ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    them (a prototype that does not see every sync, torch says): their
+    count and each warning's file:line; then, where there is one, the
+    stack of the first (the call again under ``"error"``, which raises
+    there).  Measured, not gated (the host enqueue, ROADMAP B2)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    def site(filename, lineno, name=""):
+        path = os.path.abspath(filename)
+        path = (os.path.relpath(path, ROOT) if path.startswith(ROOT)
+                else path.split("site-packages/")[-1])
+        return f"{path}:{lineno} {name}".strip()
+
+    state = (sampler.state_m, sampler.state_u, sampler.est)
+    sampler.iter_fn(*state, sampler.draws, it)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sampler.iter_fn(*state, sampler.draws, it)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own one-time notice ("Synchronization debug mode is a
+    # prototype feature ...") is not a sync
+    where = [site(w.filename, w.lineno) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    first = []
+    if where:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sampler.iter_fn(*state, sampler.draws, it)
+        except RuntimeError as e:
+            first = [site(f.filename, f.lineno, f.name)
+                     for f in traceback.extract_tb(e.__traceback__)][-6:]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return {"host_syncs": len(where), "sync_sites": where,
+            "first_sync_stack": first}
+
+
+def entry_phase(train, test, counts, total, tag, devnull, device="cuda", k=K,
+                chunks=2, iters=50, n_ranks=2):
+    """Phase 28: the entry points (``bpmf_tpu_torch.entry``) and the pure
+    iteration.  (a) ``entry()``'s function twice on cloned inputs, bitwise
+    equal and finite, beside the same call through the plain versions
+    (CHAIN_TOL); (b) the main path at full width (``train``: ml-1m synth,
+    K=32, #1 on both sides), ``chunks`` of ``iters`` iterations through an
+    ``iter_fn`` loop and through ``BPMF.run_chunk`` from the same initial
+    state on the same ``TorchDraws``: bitwise equal, finite, both ms/iter;
+    (c) the host syncs of one ``iter_fn`` call on #1 and on the bucketed
+    route (#8) (measured, not gated); (d) ``dryrun_multichip(n_ranks)``:
+    each leg's two steps within ENTRY_LEG_TOL of the one-device tiny chain,
+    its kernels, and the two-process leg's final line equal to one process
+    of ``n_ranks`` ranks on the command line.  ``device``, ``k``,
+    ``chunks`` and ``iters`` exist for a rehearsal on the CPU at a small
+    size.  Returns the phase's lines and its seconds."""
+    import numpy as np
+    import torch
+
+    from bpmf_tpu_torch import Config, entry, synth_movielens, write_matrix
+    from bpmf_tpu_torch.sampler import BPMF, TorchDraws
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    lines = []
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if x is None or isinstance(x, (int, float)):
+            return []
+        return [t for y in x for t in tensors(y)]
+
+    def bitwise(a, b):
+        ta, tb = tensors(a), tensors(b)
+        return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+    def clone(x):
+        return type(x)(*(None if t is None else clone(t) if isinstance(t, tuple)
+                         else t.clone() for t in x))
+
+    # (a) entry()'s function on the card, twice, and through the plain versions
+    fn, args = entry.entry(device=device)
+    state, rest = args[:3], args[3:]
+    counts.reset()
+    first = fn(*(clone(x) for x in state), *rest)
+    second = fn(*(clone(x) for x in state), *rest)
+    n = counts.read()
+    with plain_kernels():
+        plain = fn(*(clone(x) for x in state), *rest)
+    assert bitwise(first, second), "entry(): two calls differ"
+    assert all(torch.isfinite(t).all() for t in tensors(first))
+    got = torch.stack(first[3]).cpu().numpy()
+    want = torch.stack(plain[3]).cpu().numpy()
+    np.testing.assert_allclose(got, want, **CHAIN_TOL)
+    items_err = max(float((a.items - b.items).abs().max())
+                    for a, b in zip(first[:2], plain[:2]))
+    assert items_err <= CHAIN_TOL["atol"] + CHAIN_TOL["rtol"] * max(
+        float(t.items.abs().max()) for t in plain[:2]), items_err
+    if cuda:
+        assert n == launches(fused_inkernel=4), n
+    for key, c in n.items():
+        total[key] += c
+    lines.append({"phase": "entry", "part": "a", "what": "entry()'s fn, twice on "
+                  "cloned inputs, and through the plain versions",
+                  "k": fn.__self__.cfg.num_latent, "launches": n,
+                  "bitwise_repeat": True, "metrics": got.tolist(),
+                  "plain_max_abs_err": float(np.abs(got - want).max()),
+                  "items_max_abs_err": items_err, "tolerance": CHAIN_TOL, **tag})
+    del fn, args, state, first, second, plain
+
+    # (b) the main path at full width: an iter_fn loop against run_chunk
+    s = BPMF(Config(num_latent=k, burnin=2, nsims=chunks * iters + 1), train,
+             test, out=devnull, device=device)
+    s.setup()
+    if cuda:
+        assert s.users.route == s.movies.route == "fused"
+    loop_state = (s.state_m, s.state_u, s.est)
+    draws = TorchDraws(s.cfg.seed, s.device)
+
+    def timed(run):
+        mets, chunk_s = [], []
+        counts.reset()
+        for c in range(chunks):
+            t0 = time.perf_counter()
+            mets.append(run(c))          # ends in a host sync
+            chunk_s.append(time.perf_counter() - t0)
+        return np.concatenate(mets), chunk_s, counts.read()
+
+    def loop_chunk(c):
+        nonlocal loop_state
+        mets = []
+        for it in range(c * iters, (c + 1) * iters):
+            *loop_state, met = s.iter_fn(*loop_state, draws, it)
+            mets.append(torch.stack(met))
+        return torch.stack(mets).cpu().numpy()
+
+    loop_mets, loop_s, loop_n = timed(loop_chunk)
+    chunk_mets, chunk_s, chunk_n = timed(lambda c: np.stack(s.run_chunk(iters), 1))
+    assert np.isfinite(loop_mets).all(), loop_mets
+    assert np.array_equal(loop_mets, chunk_mets), "iter_fn loop != run_chunk"
+    assert bitwise(tuple(loop_state), (s.state_m, s.state_u, s.est))
+    done = chunks * iters
+    if cuda:
+        assert loop_n == chunk_n == launches(fused_inkernel=2 * done), (loop_n, chunk_n)
+    for key in loop_n:
+        total[key] += loop_n[key] + chunk_n[key]
+    line = {"phase": "entry", "part": "b", "dataset": "ml-1m synth", "k": k,
+            "iterations": done, "routes": [s.movies.route, s.users.route],
+            "launches": loop_n, "run_chunk_launches": chunk_n,
+            "bitwise_equal": True, "rmse_avg": float(loop_mets[-1, 1]),
+            "iter_fn_ms_per_iter": sum(loop_s[1:]) / ((chunks - 1) * iters) * 1e3,
+            "run_chunk_ms_per_iter": sum(chunk_s[1:]) / ((chunks - 1) * iters) * 1e3,
+            "timed": f"chunks 2-{chunks} of {iters}, host clock, a sync each",
+            **tag}
+
+    # (c) host syncs in one iteration, #1 and the buckets
+    if cuda:
+        line.update(host_syncs(s, done))
+    lines.append(line)
+    del s, loop_state
+    b = BPMF(Config(num_latent=k, burnin=2, nsims=10, gram_impl="bucketed"),
+             train, test, out=devnull, device=device)
+    b.setup()
+    if cuda:
+        counts.reset()
+        syncs = host_syncs(b, 0)
+        n = counts.read()
+        assert n == launches(blast=4), n
+        total["blast"] += n["blast"]
+        lines.append({"phase": "entry", "part": "c", "dataset": "ml-1m synth",
+                      "k": k, "route": "bucketed", "launches": n, **syncs, **tag})
+    del b
+
+    # (d) dryrun_multichip on gloo ranks (on the one GPU), each leg against
+    # the one-device tiny chain; the two-process leg against one process
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dry = entry.dryrun_multichip(n_ranks, device=device)
+    printed = out.getvalue()
+    one = entry._tiny_sampler(1, device=device)
+    one_device = np.array([list(one.step()) for _ in range(2)])
+    del one
+    d8_kernels = {"gram_inkernel", "gram_hoisted", "solve_shared"}
+    for leg in dry["legs"]:
+        err = float(np.abs(leg["metrics"] - one_device).max())
+        ran = set(leg["launches"])
+        if cuda:
+            if leg["leg"][1] == "bucketed":
+                assert ran == {"blast"}, leg
+            else:
+                assert "solve_shared" in ran and ran <= d8_kernels, leg
+                assert ran & {"gram_inkernel", "gram_hoisted"}, leg
+        for key, c in leg["launches"].items():
+            total[key] += c
+        lines.append({"phase": "entry", "part": "d", "leg": list(leg["leg"]),
+                      "n_ranks": n_ranks, "placement": dry["placement"],
+                      "metrics": leg["metrics"].tolist(),
+                      "one_device_max_abs_err": err, "tolerance": ENTRY_LEG_TOL,
+                      "launches": leg["launches"], **tag})
+        assert err <= ENTRY_LEG_TOL, lines[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, te = os.path.join(tmp, "train.sdm"), os.path.join(tmp, "test.sdm")
+        tiny = synth_movielens(**entry.TINY_DATA)
+        write_matrix(tr, tiny[0])
+        write_matrix(te, tiny[1])
+        rank_dev = "cpu" if not cuda else f"cuda:{torch.cuda.current_device()}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "bpmf_tpu_torch", "-n", tr, "-p", te, "-i", "3",
+             "-b", "1", "-d", "16", "--seed", "7", "--devices", str(n_ranks),
+             "--device", rank_dev], capture_output=True, text=True, cwd=tmp,
+            timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    final = [x for x in proc.stdout.splitlines() if x.startswith("Final Avg RMSE")]
+    assert dry["multihost"]["final"] == final[0], (dry["multihost"]["final"], final)
+    lines.append({"phase": "entry", "part": "d", "leg": "two processes, BPMF_DIST",
+                  "n_ranks": n_ranks, "final": final[0],
+                  "one_process": f"--devices {n_ranks} --device {rank_dev}",
+                  "printed": printed.splitlines(), **tag})
     return lines, time.perf_counter() - t_phase
 
 
@@ -3179,6 +3427,12 @@ def main():
     for line in lines:
         emit({**line, "phase_s": api_s})
     del btrain
+
+    # 28. the entry points: entry()'s function, the main path through
+    # iter_fn against run_chunk, host syncs per iteration, dryrun_multichip(2)
+    lines, entry_s = entry_phase(train, test, counts, total, tag, devnull)
+    for line in lines:
+        emit({**line, "phase_s": entry_s})
 
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"

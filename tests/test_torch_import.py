@@ -46,6 +46,8 @@ def test_imports_without_jax_or_triton():
         import bpmf_tpu_torch.sampler, bpmf_tpu_torch.cli
         import bpmf_tpu_torch.convert, bpmf_tpu_torch.device
         import bpmf_tpu_torch.profile_chain
+        from bpmf_tpu_torch.entry import dryrun_multichip, entry
+        from bpmf_tpu_torch.ops import launch_counts
         import bpmf_tpu_torch.config, bpmf_tpu_torch.datasets
         import bpmf_tpu_torch.io, bpmf_tpu_torch.io.matrix_io
         import bpmf_tpu_torch.io.native
