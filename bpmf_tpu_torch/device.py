@@ -7,9 +7,11 @@ CPU every kernel's plain PyTorch version runs instead of the kernel.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["card_power", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -27,3 +29,17 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def card_power(index: int | None = None) -> str | None:
+    """``nvidia-smi``'s name and power limit of card ``index`` (every card
+    where None), as ``--query-gpu=name,power.limit --format=csv,noheader``
+    prints them, or None where they cannot be read."""
+    cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    if index is not None:
+        cmd.insert(1, f"--id={index}")
+    try:
+        return subprocess.run(cmd, capture_output=True, text=True, check=True,
+                              timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None

@@ -28,13 +28,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from bpmf_tpu_torch import Config, synth_chembl, synth_movielens
+from bpmf_tpu_torch.device import card_power
 
 
 def _device_us(evt) -> float:
@@ -96,10 +96,7 @@ def profile(data: str, k: int, warmup: int, iters: int, top: int,
                      "ms_per_iter": _device_us(e) / 1e3 / iters}
                     for e in kernels[:top]],
         "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(),
+        "nvidia_smi": card_power(),
     }
 
 

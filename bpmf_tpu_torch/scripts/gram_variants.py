@@ -132,15 +132,14 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("gram_variants: needs an NVIDIA GPU")
+    from bpmf_tpu_torch.device import card_power
     from bpmf_tpu_torch.ops import dense8 as d8
 
     names = [n for n in a.variants.split(",") if n]
     with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
         libs = dict(zip(names, pool.map(build_variant, names)))
     cases = inputs()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card_power()
     print(json.dumps({"variant": "as built", **times(cases), "nvidia_smi": smi}),
           flush=True)
     real = d8._gram_kernel

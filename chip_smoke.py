@@ -60,7 +60,11 @@ Phases, each printing JSON lines:
               on the in-kernel one (#3); finite, and 3 iterations equal to
               the plain-version chain; then 2 chunks of 10 under
               BPMF_D8_PT=hoisted (#4 on both sides, the 61,253-rated
-              protein over segments), the same checks
+              protein over segments), the same checks; then the bench's
+              chembl leg in this process: K=32, 4 chunks of 100 on the
+              default route, both sides on #1 (2 launches an iteration),
+              rmse_avg within 0.01 of 0.7568, and #1 on both sides once
+              more on the chain's own codes and last state (below)
   10. kernel8 the batched solve (#8) against its plain version and the
               torch.linalg chain (Cholesky, two triangular solves) at
               B = 6144, K in {1, 8, 16, 24, 32, 33, 48, 63, 64, 65, 79, 80,
@@ -73,8 +77,11 @@ Phases, each printing JSON lines:
               iteration, no dense8 kernel (the movies' split buckets among
               its systems)
   12. ml25m    the bench's ml-25M half scale (81270 x 29523, 6.25M ratings,
-              seed 25), K=32, bucketed, 3 chunks of 20 (bench.py's measure
-              with iters=20, repeats=2): rmse_avg within 0.01 of 1.0902
+              seed 25), K=32, 3 chunks of 20 (bench.py's measure with
+              iters=20, repeats=2): on the default route (both sides on
+              #1, 2 launches an iteration; then #1 on both sides once more
+              on the chain's own codes and last state, below), then
+              bucketed (#8); each rmse_avg within 0.01 of 1.0902
   13. offgrid  ml-1m synth with train and test moved off the grid by a
               seeded uniform +-0.25: the auto route (fused dense, #5) and
               fuse_dense="off" (plain dense, #8), 500 iterations each,
@@ -246,6 +253,22 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               kernels counted (#3 + #5 on the dense8 legs, #8 on the
               buckets), then its two processes under BPMF_DIST, whose final
               line must equal one process of two ranks (--device cuda:0)
+  29. bench  the port's bench legs (bpmf_tpu_torch.bench) as a user runs
+              them: ml1m (4 chunks of 500), chembl (4 of 100, K=32) and
+              ml25m_half (3 of 20), each through bench.run_leg, its own
+              subprocess under a hard timeout, on the route the sampler
+              picks by default; each leg's dict printed; its rmse_avg_check
+              within 0.01 of the JAX package's (BENCH_ANCHORS), both sides
+              dense8 on #1 (route fused), 2 fused_inkernel launches an
+              iteration and no other kernel; each rmse_avg_check also
+              within 0.005 of the same chain run in this process (phases
+              4, 9, 12), whose kernels were checked there; a timeout or an
+              error fails the phase
+After the #1 chains of phases 9 and 12 and phase 17's chain, the
+megakernel runs once more on each side, on the chain's own code array,
+scales and last state: each item's draw against the float64 draw of its
+system within SOLVE_BOUND, its max_abs_err against the plain version in
+the kernels line.
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -308,6 +331,13 @@ RMSE_AVG_ML25M_HALF = 1.0902     # BENCH_r05.json, the ml-25M half-scale leg
 OFFGRID_BAND = 0.005             # two routes of one chain, other rounding
 GRID_BAND = 0.005                # the same, for phase 22's chains
 WIDE_BAND = 0.005                # the same, for phase 23's K=40 chains
+# phase 29: the bench legs, each with the JAX package's rmse_avg_check on
+# the same data, seed and schedule (BENCH_r05.json) and a hard timeout
+BENCH_ANCHORS = {"ml1m": 0.5306, "chembl": 0.7568, "ml25m_half": 1.0902}
+BENCH_TIMEOUT_S = {"ml1m": 150.0, "chembl": 150.0, "ml25m_half": 240.0}
+LEG_BAND = 0.005                 # a leg against the same chain run in this
+                                 # process (phases 4, 9, 12): the same data,
+                                 # seed and schedule in another process
 ENTRY_LEG_TOL = 1e-4             # phase 28 (d): a dryrun leg's two steps
                                  # against the one-device tiny chain (the
                                  # JAX package's one-trajectory invariant)
@@ -724,23 +754,28 @@ def d8_system64(codes, v_t, lam, alpha, orientation):
     return system64
 
 
-def d8_rhs64(codes, v_t, prior_rhs, cs, cb, orientation, fold):
-    """[items, K] float64 rhs of the megakernels' systems on bf16 operands,
-    the prior's included: cs v.code + cb v.ind (#1), or with ``fold`` (#2)
-    code.bf16(cs v) + ind.bf16(cb v) (ops.dense8.fold_weights)."""
+def d8_rhs64(codes, v_t, prior_rhs, cs, cb, orientation, fold, chunk=4096):
+    """[items, K] float64 rhs of the megakernels' systems, the prior's
+    included: cs v.code + cb v.ind (#1, and #2 on float32 operands), or with
+    ``fold`` (#2 on bf16 operands) code.bf16(cs v) + ind.bf16(cb v)
+    (ops.dense8.fold_weights); ``chunk`` items at a time, so that the
+    float64 codes of an ml-25M side are never whole."""
     import torch
 
     from bpmf_tpu_torch.ops import dense8 as d8
 
     f64 = torch.float64
     x = codes if orientation == "rows" else codes.t()
-    ind, cv = (x != 0).to(f64), x.to(f64)
     if fold:
-        ws, wb = (w.to(f64) for w in d8.fold_weights(v_t, cs, cb))
-        rhs = cv @ ws.t() + ind @ wb.t()
+        ws, wb = (w.to(f64).t() for w in d8.fold_weights(v_t, cs, cb))
     else:
-        v = v_t.to(f64)
-        rhs = cs * (cv @ v.t()) + cb * (ind @ v.t())
+        v = v_t.to(f64).t()
+    rhs = torch.empty((x.shape[0], v_t.shape[0]), dtype=f64, device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        xs = x[s:s + chunk]
+        ind, cv = (xs != 0).to(f64), xs.to(f64)
+        rhs[s:s + chunk] = (cv @ ws + ind @ wb if fold
+                            else cs * (cv @ v) + cb * (ind @ v))
     return rhs + prior_rhs.to(f64).t()
 
 
@@ -1692,6 +1727,35 @@ def entry_phase(train, test, counts, total, tag, devnull, device="cuda", k=K,
     return lines, time.perf_counter() - t_phase
 
 
+def bench_phase(total, tag, chain_rmse):
+    """Phase 29: the ml1m, chembl and ml25m_half legs of
+    ``bpmf_tpu_torch.bench``, each through ``bench.run_leg`` (a subprocess
+    of its own under BENCH_TIMEOUT_S) on the sampler's default route.  Each
+    leg's dict is printed before its gates: ``rmse_avg_check`` within
+    RMSE_BAND of BENCH_ANCHORS and within LEG_BAND of the same chain run in
+    this process, whose kernels were held to their plain versions there
+    (``chain_rmse``: phases 4, 9 and 12), both sides dense8 on #1
+    (``fused``), 2 ``fused_inkernel`` launches an iteration of its timed
+    chunks and no other kernel.  The legs' launches go into ``total``.
+    Returns the phase's seconds."""
+    from bpmf_tpu_torch.bench import run_leg
+
+    t_phase = time.perf_counter()
+    for leg, anchor in BENCH_ANCHORS.items():
+        d = run_leg(leg, BENCH_TIMEOUT_S[leg])
+        emit({"phase": "bench", "leg": leg, **d, "rmse_avg_jax": anchor,
+              "band": RMSE_BAND, "rmse_avg_in_process": chain_rmse[leg],
+              "leg_band": LEG_BAND, **tag})
+        assert "items_per_sec" in d, (leg, d)
+        assert abs(d["rmse_avg_check"] - anchor) <= RMSE_BAND, (leg, d)
+        assert abs(d["rmse_avg_check"] - chain_rmse[leg]) <= LEG_BAND, (leg, d)
+        for side in d["sides"].values():
+            assert side == {"impl": "dense8", "route": "fused"}, (leg, d)
+        assert d["launches_per_iter"] == {"fused_inkernel": 2.0}, (leg, d)
+        total["fused_inkernel"] += d["launches"]["fused_inkernel"]
+    return time.perf_counter() - t_phase
+
+
 def main():
     import numpy as np
     import torch
@@ -1701,6 +1765,7 @@ def main():
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     from bpmf_tpu_torch import Config, synth_chembl, synth_movielens
+    from bpmf_tpu_torch.device import card_power
     from bpmf_tpu_torch.io import native
     from bpmf_tpu_torch.ops import dense8 as d8
     from bpmf_tpu_torch.ops import pallas_solve as ps
@@ -1726,10 +1791,8 @@ def main():
     counts = Counts()
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = card_power()
+    assert smi, "nvidia-smi did not read the card's name and power limit"
     card = torch.cuda.get_device_name(0)
     emit({"phase": "device", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1904,6 +1967,7 @@ def main():
     assert abs(rmse_avg - RMSE_AVG_JAX) <= RMSE_BAND, (
         f"rmse_avg {rmse_avg} outside {RMSE_AVG_JAX} +- {RMSE_BAND}")
     total = dict(n)
+    chain_rmse = {"ml1m": rmse_avg}   # phase 29's legs against these chains
     emit({"phase": "main", "dataset": "ml-1m synth", "k": K,
           "iterations": done, "launches": n, "rmse_avg": rmse_avg,
           "rmse": float(mets[-1].rmse[-1]), "rmse_avg_jax": RMSE_AVG_JAX,
@@ -2043,6 +2107,71 @@ def main():
                    lambda: ps.tri_combine_solve_sample_ref(*args, lt, gr),
                    inputs=inputs, shape=codes.shape, f64=(args, lt, gr),
                    work=(s_bytes, solve_flops(k, b) + 2 * tvk * b), **info)
+
+    def chain_sweep(sampler, inputs, operands):
+        """The megakernels once more on a chain's own code array, scales and
+        last state (a fresh noise draw), for each (orientation, operand) of
+        ``operands`` (inkernel: #1; tight: #2): a second launch equal to
+        the first bit for bit; each item's draw against the float64 draw of
+        its system within SOLVE_BOUND (the most-rated items' systems are
+        too ill-conditioned for two f32 orders to agree at KERNEL_TOL), the
+        plain version's ratio beside it; max_abs_err against the plain
+        version.  One JSON line each, and its times and bound under
+        ``<key>_<where>_<orientation>`` of its kernels-line row (``where``:
+        ``inputs``, underscored).  Returns each orientation's launch as
+        ``call(codes)``."""
+        codes, scs, scb = sampler._codes, sampler._d8_cs, sampler._d8_cb
+        alpha_c, where = sampler.cfg.alpha, inputs.replace(" ", "_")
+        sides = {"rows": (sampler.users, sampler.state_u, sampler.state_m),
+                 "cols": (sampler.movies, sampler.state_m, sampler.state_u)}
+        calls = {}
+        for orientation, name in operands:
+            side, state, frozen = sides[orientation]
+            hp, v_t = state.hp, frozen.items.t()
+            k, items = v_t.shape[0], state.items.shape[0]
+            noise_t = torch.randn((k, items), device="cuda")
+            prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
+            p_t = d8.packed_tri_t(v_t) if name == "tight" else None
+            args = (v_t, hp.lambda_f, prior_rhs, noise_t, scs, scb, alpha_c,
+                    orientation)
+
+            def call(c=codes, p_t=p_t, args=args, deg=side.max_degree):
+                return dense8_sweep_solve(c, p_t, *args, layout="tight",
+                                          max_degree=deg)
+
+            def plain(p_t=p_t, args=args):
+                return dense8_sweep_solve_ref(codes, p_t, *args, layout="tight")
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, call())
+            want = plain()
+            worst, err64, kappa = solve_vs_f64(
+                d8_system64(codes, v_t, hp.lambda_f, alpha_c, orientation),
+                d8_rhs64(codes, v_t, prior_rhs, scs, scb, orientation, False),
+                noise_t.t(), [got.t(), want.t()])
+            r = {"max_abs_err": float((got - want).abs().max()),
+                 "ms": median_ms(call, 10, 2), "plain_ms": median_ms(plain, 3, 1)}
+            del got, want
+            work = bound(*sweep_work((codes, v_t, None, None, noise_t), p_t,
+                                     "tight"))
+            emit({"phase": "kernel", "kernel": "dense8_sweep_solve",
+                  "operand": name, "inputs": inputs, "orientation": orientation,
+                  "side": side.name, "max_degree": side.max_degree,
+                  "segments": d8.sweep_plan(items, v_t.shape[1], k,
+                                            side.max_degree,
+                                            d8._sm_count(codes.device)).segments,
+                  "shape": list(codes.shape), "k": k, "tolerance": SOLVE_BOUND,
+                  "err_over_bound": worst[0], "plain_err_over_bound": worst[1],
+                  "err_vs_f64": err64[0], "plain_err_vs_f64": err64[1],
+                  "max_kappa_f": kappa, **r, **work, **tag})
+            assert worst[0] <= 1.0, (inputs, side.name, worst, err64)
+            res = result[name]
+            res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms"):
+                res[f"{key}_{where}_{orientation}"] = {**r, **work}[key]
+            calls[orientation] = call
+        torch.cuda.empty_cache()
+        return calls
 
     for k in (64, 32):
         for i, orientation in enumerate(("rows", "cols")):
@@ -2306,6 +2435,31 @@ def main():
           **per_iter_stats(sampler, chunk_s, h_iters), "setup_s": setup_s, **tag})
     chain_kernels(sampler, "chembl_hoisted_chain")
     del sampler
+    # the bench's chembl leg in this process: K=32, 4 chunks of 100 on the
+    # default route (both sides #1), then #1 on the chain's own codes and
+    # last state
+    def chembl32():
+        return BPMF(Config(num_latent=K, burnin=2, nsims=5 * 100), ctrain, ctest,
+                    out=devnull, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    sampler, mets, chunk_s, setup_s, n = drive(chembl32, counts, 4, 100)
+    assert sampler.users.route == sampler.movies.route == "fused"
+    assert n == launches(fused_inkernel=2 * 400), n
+    total["fused_inkernel"] += n["fused_inkernel"]
+    chain_rmse["chembl"] = float(mets[-1].rmse_avg[-1])
+    emit({"phase": "chembl", "dataset": "chembl synth", "k": K,
+          "routes": {"compounds": sampler.users.route,
+                     "proteins": sampler.movies.route},
+          "iterations": 400, "launches": n, "rmse_avg": chain_rmse["chembl"],
+          "rmse": float(mets[-1].rmse[-1]),
+          "rmse_avg_jax": BENCH_ANCHORS["chembl"], "band": RMSE_BAND,
+          **per_iter_stats(sampler, chunk_s, 100), "setup_s": setup_s,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **tag})
+    assert abs(chain_rmse["chembl"] - BENCH_ANCHORS["chembl"]) <= RMSE_BAND
+    chain_sweep(sampler, "chembl K32 chain", (("rows", "inkernel"),
+                                              ("cols", "inkernel")))
+    del sampler
 
     # 10. kernel8: the batched solve (#8) against plain and torch.linalg
     blast = ps.chol_solve_sample_pallas_blast
@@ -2407,7 +2561,8 @@ def main():
             main8[key] += r[key]
     del sampler
 
-    # 12. the bench's ml-25M half scale on the bucketed route
+    # 12. the bench's ml-25M half scale on its default route (#1) and on the
+    # bucketed route
     t0 = time.perf_counter()
     btrain, btest = synth_movielens(n_users=81_270, n_movies=29_523,
                                     n_ratings=6_250_000, seed=25)
@@ -2418,6 +2573,27 @@ def main():
         return lambda: BPMF(Config(num_latent=K, burnin=2, nsims=4 * b_iters, **kw),
                             btrain, btest, out=devnull, device="cuda")
 
+    # the bench's leg in this process: the default route (dense8, both sides
+    # #1; 81,270 padded users are far under pt_mode's crossover), then #1 on
+    # the chain's own codes and last state
+    torch.cuda.reset_peak_memory_stats()
+    sampler, mets, chunk_s, setup_s, n = drive(ml25m(), counts, b_chunks, b_iters)
+    assert sampler.users.route == sampler.movies.route == "fused"
+    assert n == launches(fused_inkernel=2 * b_chunks * b_iters), n
+    total["fused_inkernel"] += n["fused_inkernel"]
+    chain_rmse["ml25m_half"] = float(mets[-1].rmse_avg[-1])
+    emit({"phase": "ml25m", "dataset": "ml-25M synth, half scale", "k": K,
+          "routes": {"users": sampler.users.route, "movies": sampler.movies.route},
+          "iterations": b_chunks * b_iters, "launches": n,
+          "rmse_avg": chain_rmse["ml25m_half"], "rmse": float(mets[-1].rmse[-1]),
+          "rmse_avg_jax": RMSE_AVG_ML25M_HALF, "band": RMSE_BAND,
+          "datagen_s": gen_s, "setup_s": setup_s,
+          **per_iter_stats(sampler, chunk_s, b_iters),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **tag})
+    assert abs(chain_rmse["ml25m_half"] - RMSE_AVG_ML25M_HALF) <= RMSE_BAND
+    chain_sweep(sampler, "ml25m half chain", (("rows", "inkernel"),
+                                              ("cols", "inkernel")))
+    del sampler
     torch.cuda.reset_peak_memory_stats()
     sampler, mets, chunk_s, setup_s, n = drive(ml25m(gram_impl="bucketed"),
                                                counts, b_chunks, b_iters)
@@ -2435,14 +2611,9 @@ def main():
           "peak_mem_bytes": torch.cuda.max_memory_allocated(), **tag})
     chain_records(sampler, "ml25m chain")
     del sampler
-    if abs(rmse_avg - RMSE_AVG_ML25M_HALF) > RMSE_BAND:
-        # the same data and seed through the port's dense8 chain, for the
-        # record, before the gate fails
-        _, dmets, _, _, _ = drive(ml25m(), counts, b_chunks, b_iters)
-        emit({"phase": "ml25m_dense8_check",
-              "rmse_avg": float(dmets[-1].rmse_avg[-1])})
-        raise AssertionError(f"ml25m bucketed: rmse_avg {rmse_avg} outside "
-                             f"{RMSE_AVG_ML25M_HALF} +- {RMSE_BAND}")
+    assert abs(rmse_avg - RMSE_AVG_ML25M_HALF) <= RMSE_BAND, (
+        f"ml25m bucketed: rmse_avg {rmse_avg} outside "
+        f"{RMSE_AVG_ML25M_HALF} +- {RMSE_BAND}")
 
     # 13. ratings off the grid: fused dense (#5) and plain dense (#8)
     rng = np.random.default_rng(2024)
@@ -2585,67 +2756,17 @@ def main():
     assert abs(rmse_avg - rmse_avg_inkernel) <= TALL_BAND, (
         rmse_avg, rmse_avg_inkernel)
     # #2 on the compounds and #1 on the proteins once more, on the chain's
-    # own codes and last state, each item's draw against the float64 draw
-    # of its system; #2 again on all-zero codes (the scan and the tail)
-    codes, scs, scb = sampler._codes, sampler._d8_cs, sampler._d8_cb
-    for orientation, name, side, state, frozen in (
-            ("rows", "tight", sampler.users, sampler.state_u, sampler.state_m),
-            ("cols", "inkernel", sampler.movies, sampler.state_m, sampler.state_u)):
-        hp = state.hp
-        v_t = frozen.items.t()
-        noise_t = torch.randn((K, state.items.shape[0]), device="cuda")
-        prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
-        p_t = d8.packed_tri_t(v_t) if name == "tight" else None
-        args = (v_t, hp.lambda_f, prior_rhs, noise_t, scs, scb,
-                sampler.cfg.alpha, orientation)
-
-        def call(c=codes):
-            return dense8_sweep_solve(c, p_t, *args, layout="tight",
-                                      max_degree=side.max_degree)
-
-        def plain():
-            return dense8_sweep_solve_ref(codes, p_t, *args, layout="tight")
-        got = call()
-        torch.cuda.synchronize()
-        assert torch.equal(got, call())
-        want = plain()
-        x = codes if orientation == "rows" else codes.t()
-        x64 = x.to(torch.float64)
-        ind64 = (x != 0).to(torch.float64)
-        v64 = v_t.to(torch.float64).t()
-        rhs64 = scs * (x64 @ v64) + scb * (ind64 @ v64) + prior_rhs.t().to(torch.float64)
-        del x64, ind64, v64
-        worst, err64, kappa = solve_vs_f64(
-            d8_system64(codes, v_t, hp.lambda_f, sampler.cfg.alpha, orientation),
-            rhs64, noise_t.t(), [got.t(), want.t()])
-        del rhs64
-        r = {"max_abs_err": float((got - want).abs().max()),
-             "ms": median_ms(call, 10, 2), "plain_ms": median_ms(plain, 3, 1)}
-        nbytes, flops = sweep_work((codes, v_t, None, None, noise_t), p_t, "tight")
-        work = bound(nbytes, flops)
-        if name == "tight":
-            zeros = torch.zeros_like(codes)
-            r["ms_zero_codes"] = median_ms(lambda: call(zeros), 10, 2)
-            del zeros
-        emit({"phase": "kernel", "kernel": "dense8_sweep_solve", "operand": name,
-              "inputs": "tall chain", "orientation": orientation,
-              "side": side.name, "max_degree": side.max_degree,
-              "segments": d8.sweep_plan(state.items.shape[0], v_t.shape[1], K,
-                                        side.max_degree,
-                                        d8._sm_count(codes.device)).segments,
-              "shape": list(codes.shape), "k": K, "tolerance": SOLVE_BOUND,
-              "err_over_bound": worst[0], "plain_err_over_bound": worst[1],
-              "err_vs_f64": err64[0], "plain_err_vs_f64": err64[1],
-              "max_kappa_f": kappa, **r, **work, **tag})
-        assert worst[0] <= 1.0, (side.name, worst, err64)
-        res = result[name]
-        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
-        for key, val in r.items():
-            if key != "max_abs_err":
-                res[f"{key}_tall_chain_{orientation}"] = val
-        res[f"bound_ms_tall_chain_{orientation}"] = work["bound_ms"]
-        del got, want, p_t
-    del sampler, codes, ttrain, ttest
+    # own codes and last state; #2 again on all-zero codes (the scan and the
+    # per-item solve alone)
+    calls = chain_sweep(sampler, "tall chain", (("rows", "tight"),
+                                                ("cols", "inkernel")))
+    zeros = torch.zeros_like(sampler._codes)
+    zero_ms = median_ms(lambda: calls["rows"](zeros), 10, 2)
+    emit({"phase": "kernel", "kernel": "dense8_sweep_solve", "operand": "tight",
+          "inputs": "tall chain, all-zero codes", "orientation": "rows",
+          "ms": zero_ms, **tag})
+    result["tight"]["ms_zero_codes_tall_chain_rows"] = zero_ms
+    del sampler, zeros, calls, ttrain, ttest
 
     # 18. the grouped layout (#7): the -l chain (users split, #6 grouped)
     # and the fused dense chain off the grid (#5 grouped)
@@ -3433,6 +3554,11 @@ def main():
     lines, entry_s = entry_phase(train, test, counts, total, tag, devnull)
     for line in lines:
         emit({**line, "phase_s": entry_s})
+
+    # 29. the bench legs, each in its subprocess; this process's cached
+    # blocks go back to the card first
+    torch.cuda.empty_cache()
+    emit({"phase": "bench", "phase_s": bench_phase(total, tag, chain_rmse), **tag})
 
     print(smi, flush=True)
     src = "bpmf_tpu_torch/csrc/"

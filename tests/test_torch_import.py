@@ -47,6 +47,7 @@ def test_imports_without_jax_or_triton():
         import bpmf_tpu_torch.convert, bpmf_tpu_torch.device
         import bpmf_tpu_torch.profile_chain
         from bpmf_tpu_torch.entry import dryrun_multichip, entry
+        import bpmf_tpu_torch.bench
         from bpmf_tpu_torch.ops import launch_counts
         import bpmf_tpu_torch.config, bpmf_tpu_torch.datasets
         import bpmf_tpu_torch.io, bpmf_tpu_torch.io.matrix_io
@@ -65,6 +66,7 @@ def test_imports_without_jax_or_triton():
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton", "bpmf_tpu")]
         assert not bad, bad
+        assert "bench" not in sys.modules   # the JAX package's bench.py
         print("ok")
     """) == "ok"
 
