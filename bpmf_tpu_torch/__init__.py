@@ -25,7 +25,7 @@ evaluation; every route also with bf16 matmul inputs
 __version__ = "0.1.0"
 
 from bpmf_tpu_torch.config import Config  # noqa: F401
-from bpmf_tpu_torch.datasets import synth_chembl, synth_movielens  # noqa: F401
+from bpmf_tpu_torch.datasets import synth_chembl, synth_jester, synth_movielens  # noqa: F401
 from bpmf_tpu_torch.io import read_matrix, write_matrix  # noqa: F401
 
 

@@ -17,10 +17,12 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["synth_movielens", "synth_chembl", "ML1M_SHAPE", "ML25M_SHAPE"]
+__all__ = ["synth_movielens", "synth_chembl", "synth_jester", "ML1M_SHAPE",
+           "ML25M_SHAPE", "JESTER1_SHAPE"]
 
 ML1M_SHAPE = (6040, 3952)    # users x movies, ~1M ratings
 ML25M_SHAPE = (162541, 59047)  # users x movies, ~25M ratings
+JESTER1_SHAPE = (73421, 100)   # users x jokes, over 4.1M ratings
 
 
 def _sample_pairs(rng, n_users, n_movies, n_ratings, user_w, movie_w):
@@ -100,6 +102,49 @@ def synth_chembl(
     perm = rng.permutation(n_ratings)
     te, tr = perm[:n_test], perm[n_test:]
     shape = (n_compounds, n_proteins)
+    train = sp.csc_matrix((vals[tr], (rows[tr], cols[tr])), shape=shape)
+    test = sp.csc_matrix((vals[te], (rows[te], cols[te])), shape=shape)
+    return train, test
+
+
+def synth_jester(
+    n_users: int = JESTER1_SHAPE[0],
+    n_jokes: int = JESTER1_SHAPE[1],
+    n_ratings: int = 4_100_000,
+    seed: int = 1999,
+    test_frac: float = 0.1,
+    n_gauge: int = 10,
+):
+    """Jester-like dense ratings at the scale of Jester Dataset 1 (Goldberg
+    et al., "Eigentaste: A Constant Time Collaborative Filtering
+    Algorithm", Information Retrieval 4(2), 2001: 73,421 users, 100
+    jokes, over 4.1 million ratings, 56% of the matrix).  As there, every
+    user rates the ``n_gauge`` gauge jokes and 15 to 100 jokes in all (a
+    third of the users 15-35, the rest 36-100, then evened out to
+    ``n_ratings``), the others drawn uniformly.  Jester's own ratings are
+    continuous (-10.00 to +10.00 in steps of 0.01: 2,001 levels, past the
+    255 codes of the dense8 routes); these are the integers 1..5 of the
+    latent model, as in ``synth_movielens``."""
+    rng = np.random.default_rng(seed)
+    per = np.where(rng.random(n_users) < 1 / 3, rng.integers(15, 36, n_users),
+                   rng.integers(36, n_jokes + 1, n_users))
+    while (gap := n_ratings - int(per.sum())) != 0:
+        room = np.flatnonzero(per < n_jokes if gap > 0 else per > 15)
+        pick = rng.choice(room, size=min(abs(gap), room.size), replace=False)
+        per[pick] += 1 if gap > 0 else -1
+    # each user's jokes: the gauge set, then the rest in a random order
+    keys = rng.random((n_users, n_jokes))
+    keys[:, :n_gauge] = -1.0
+    order = np.argsort(keys, axis=1)
+    take = np.arange(n_jokes)[None, :] < per[:, None]
+    rows = np.broadcast_to(np.arange(n_users)[:, None], take.shape)[take]
+    cols = order[take]
+    vals = _latent_ratings(rng, rows, cols, n_users, n_jokes)
+
+    n_test = int(n_ratings * test_frac)
+    perm = rng.permutation(n_ratings)
+    te, tr = perm[:n_test], perm[n_test:]
+    shape = (n_users, n_jokes)
     train = sp.csc_matrix((vals[tr], (rows[tr], cols[tr])), shape=shape)
     test = sp.csc_matrix((vals[te], (rows[te], cols[te])), shape=shape)
     return train, test

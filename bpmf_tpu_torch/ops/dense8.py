@@ -14,7 +14,11 @@ Device part, two routes:
   substitutions, the draw) as one hand-written CUDA kernel
   (``csrc/dense8_sweep_solve.cu``), with the packed-triangle products
   formed in the kernel (#1) or streamed from a hoisted operand
-  :func:`packed_tri_t` in the tight or the 8-aligned layout (#2);
+  :func:`packed_tri_t` in the tight or the 8-aligned layout (#2); on bf16
+  operands at K <= 32 either a dense tensor-core kernel
+  (``csrc/dense8_sweep_solve_mma.cu``, launch by :func:`sweep_mma_plan`)
+  or the walk's bf16 instances, by the two kernels' cost models
+  (:func:`sweep_bf16_kernel`);
 * the first stage of the split pipeline, :func:`dense8_gram_rhs_rows` /
   :func:`dense8_gram_rhs_cols`: the packed Gram and the rhs only, then
   ``ops/pallas_solve`` solves.  On float32 operands a sparse walk over the
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -72,6 +77,10 @@ __all__ = [
     "sweep_plan",
     "hoisted_plan",
     "mma_plan",
+    "sweep_mma_plan",
+    "sweep_bf16_kernel",
+    "sweep_walk_us",
+    "walk_work",
 ]
 
 BLOCK_MULTIPLE = 512  # both sides' padded_num must be a multiple of this
@@ -632,6 +641,39 @@ HOISTED_SEGMENT_RATINGS = 512  # #4 reads one rated row of p at a time a
 HOISTED_L2_BYTES = 40 << 20  # #4: at most this much of p's rows under the
                              # blocks in flight, so they stay in an H100's
                              # 50 MB L2 beside the Gram's writes
+MMA_SWEEP_CAPACITIES = (8, 16, 24, 32)  # the tensor-core megakernel's K
+MMA_SWEEP_ITEMS = 128   # its block's items (two warpgroups of wgmma's 64),
+MMA_SWEEP_UNITS = 2     # column units (64 Gram columns, or the rhs) both
+                        # consumer warpgroups hold,
+MMA_SWEEP_WARPS = 16    # its warps (two warpgroups produce), a block an SM,
+MMA_SWEEP_STAGES = (4, 3)  # stages (int8, int16 codes)
+# Both megakernels' times on bf16 operands by a model, in microseconds,
+# fitted (least squares on the relative error) to their times per launch
+# at [6144, 4096] (K 8/16/24/32, random codes 0-16% rated) and on chains'
+# own state at K=32 (ml-1m, ml-100k's and Jester's scale, a dense synth,
+# chembl; ml-25M half for the tensor cores) (sweep_times.py --legs
+# mega_bf16 and bf16_choice, H100 80GB HBM3, 700 W).  The tensor-core
+# kernel's (sweep_mma_plan, which also picks its segment count by it): a
+# launch, then the waves of blocks times a block's chunks (a fixed part
+# and a part per Gram tile the block holds) and its fixed work (prologue,
+# partials, wait, its share of the solves).  The walk's (sweep_walk_us): a
+# launch, an item (its solve), a code entry (the scan) and an entry of its
+# work (walk_work: a warp an item, so a block of items is as slow as its
+# most-rated), the last by operand and capacity, and WALK_P_MISS more for
+# #2 when p's rows pass HOISTED_L2_BYTES.
+MMA_SWEEP_LAUNCH_US = 8.3
+MMA_SWEEP_CHUNK_US = 0.129
+MMA_SWEEP_TILE_US = 0.456
+MMA_SWEEP_BLOCK_US = 25.0
+WALK_LAUNCH_US = 25.8
+WALK_ITEM_US = 2.18e-3
+WALK_ENTRY_US = 7.75e-7
+WALK_RATING_US = {
+    "inkernel": {8: 3.41e-5, 16: 6.88e-5, 24: 1.003e-4, 32: 1.098e-4},
+    "tight": {8: 8.03e-5, 16: 8.04e-5, 24: 1.662e-4, 32: 1.358e-4},
+    "aligned": {8: 9.59e-5, 16: 1.552e-4, 24: 3.625e-4, 32: 1.960e-4}}
+WALK_P_MISS = 0.7
+MMA_SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory
 
 
 class SweepPlan(NamedTuple):
@@ -754,6 +796,149 @@ def mma_plan(items: int, frozen: int, t: int, k: int, sms: int = 132, *,
                    tiles, smem)
 
 
+class SweepMmaPlan(NamedTuple):
+    """The tensor-core megakernel's launch (:func:`sweep_mma_plan`)."""
+
+    item_blocks: int         # blocks of MMA_SWEEP_ITEMS items
+    groups: int              # column groups: Gram tiles, then the rhs
+    units_per_group: int     # Gram tiles a group holds (the last but one
+                             # may hold fewer)
+    segments: int            # S: runs of the frozen axis; the grid is
+                             # item_blocks x groups x S blocks
+    chunks_per_segment: int  # MMA_CHUNK-entry chunks each segment sums
+    scratch_shape: tuple     # the partial sums [S, items, KP(KP+1)/2 + KP]
+    counters: int            # int32 counters: the tickets, the blocks done,
+                             # and each item block's arrivals and departures
+    smem_bytes: int          # dynamic shared memory a block
+    us: float                # the cost model's time of the launch
+
+
+def _lcol_floats(kp: int) -> int:
+    """Floats of warp_chol.cuh's column store of a factor at capacity kp."""
+    return kp * kp - 8 * (kp // 4) * (kp // 4 - 1)
+
+
+@functools.cache
+def sweep_mma_plan(items: int, frozen: int, kp: int, t_in: Optional[int] = None,
+                   sms: int = 132, *, code_bytes: int = 1) -> SweepMmaPlan:
+    """The launch of the tensor-core megakernel (#1/#2 on bf16 operands,
+    ``csrc/dense8_sweep_solve_mma.cu``) for ``items`` items over ``frozen``
+    frozen entries (multiples of 64) at capacity ``kp`` (8, 16, 24, 32),
+    #1 when ``t_in`` is None, else #2 on an operand of ``t_in`` rows, with
+    codes of ``code_bytes`` bytes.  Its Gram columns (#1: kp(kp+1)/2, #2:
+    t_in) make 64-column tiles, MMA_SWEEP_UNITS to a block (of
+    MMA_SWEEP_ITEMS items, a block an SM), and one more block holds the
+    rhs: ``groups`` blocks cover an item block.  The
+    segment count S minimizes the cost model's time ``us`` (the waves of
+    blocks times a block's chunks and fixed work: MMA_SWEEP_CHUNK_US and
+    MMA_SWEEP_TILE_US a Gram tile, MMA_SWEEP_BLOCK_US), capped by the
+    chunks, by a scratch of
+    :data:`SCRATCH_LIMIT_BYTES` and by ``groups x S <= sms`` (an item
+    block's blocks wait for each other, so they must fit the card at once);
+    every segment holds ``chunks_per_segment`` chunks but the last, which
+    holds at least one.  Every block writes its units' sums to the
+    scratch; the item block's blocks then sum and solve a share of its
+    items each.  ``smem_bytes`` is the kernel's layout: MMA_SWEEP_STAGES
+    stages, each a chunk's codes, its Gram tiles' B (#2: p's rows; #1:
+    formed), the rhs tile's B (64 columns: [wx | wy]) and kp rows of v_t;
+    then a table (#1: a group's columns; #2: t_in rows); or, if
+    larger, the solve's: sixteen items' summed partials, the prior and
+    sixteen warps' factor columns; plus 1 KB to align."""
+    hoisted = t_in is not None
+    cols = t_in if hoisted else kp * (kp + 1) // 2
+    tp = -(-cols // 64)
+    groups = -(-tp // MMA_SWEEP_UNITS) + 1
+    per = MMA_SWEEP_UNITS
+    tiles = min(per, tp)
+    code_stage = max(MMA_SWEEP_ITEMS * (MMA_CHUNK * code_bytes + 16),   # rows
+                     MMA_CHUNK * (MMA_SWEEP_ITEMS * code_bytes + 16))   # cols
+    stage = (code_stage + (tiles + 1) * 64 * MMA_CHUNK * 2
+             + -(-kp * (MMA_CHUNK + 8) * 2 // 1024) * 1024)
+    end = (MMA_SWEEP_STAGES[code_bytes - 1] * stage
+           + 4 * (-(-t_in // 4) * 4 if hoisted else 64 * tiles))
+    part = kp * (kp + 1) // 2 + kp
+    solve = 4 * (MMA_SWEEP_WARPS * part + -(-kp * (kp + 1) // 4) * 4
+                 + MMA_SWEEP_WARPS * _lcol_floats(kp))
+    smem = 1024 + max(end, solve)
+    item_blocks = items // MMA_SWEEP_ITEMS
+    chunks = frozen // MMA_CHUNK
+    cap = max(1, min(chunks, SCRATCH_LIMIT_BYTES // (4 * items * part),
+                     sms // groups))
+
+    block_chunk = MMA_SWEEP_CHUNK_US + tiles * MMA_SWEEP_TILE_US
+
+    def cost(s):  # waves of blocks (one an SM) x a block's time
+        per_seg = -(-chunks // s)
+        waves = -(-item_blocks * groups * -(-chunks // per_seg) // sms)
+        return waves * (per_seg * block_chunk + MMA_SWEEP_BLOCK_US)
+
+    best = min(range(1, cap + 1), key=cost)
+    per_seg = -(-chunks // best)
+    s = -(-chunks // per_seg)
+    return SweepMmaPlan(item_blocks, groups, per, s, per_seg, (s, items, part),
+                        2 + 2 * item_blocks, smem, MMA_SWEEP_LAUNCH_US + cost(best))
+
+
+def walk_work(codes: torch.Tensor, orientation: str, k: int,
+              max_degree: Optional[int] = None, sms: int = 132) -> int:
+    """The rated entries the walk (the megakernel a warp an item, blocks of
+    :data:`ITEMS_PER_BLOCK`) spends its time on in one half-sweep of
+    ``codes`` in ``orientation`` at K ``k``: for each block and each
+    segment of :func:`sweep_plan`, the block's items times its most-rated
+    item's ratings in the segment, since a block holds its SM's slot until
+    its slowest warp ends.  Equal to the rated entries when every item of
+    a block has the same ratings, up to ``codes.numel()``; on skewed data
+    (ml-1m, chembl) 2.5-5x them.  Sums on the codes' device."""
+    c = codes if orientation == "rows" else codes.t()
+    items, frozen = c.shape
+    seg = sweep_plan(items, frozen, k, max_degree, sms).tiles_per_segment * BLOCK_MULTIPLE
+    rows = 128 * ITEMS_PER_BLOCK   # items a step, to bound the temporaries
+    total = 0
+    for s0 in range(0, frozen, seg):
+        for r0 in range(0, items, rows):
+            n = (c[r0:r0 + rows, s0:s0 + seg] != 0).sum(1, dtype=torch.int32)
+            total += int(n.view(-1, ITEMS_PER_BLOCK).amax(1).sum())
+    return total * ITEMS_PER_BLOCK
+
+
+def sweep_walk_us(items: int, frozen: int, work: int, kp: int, operand: str,
+                  t_in: Optional[int] = None) -> float:
+    """The walk's time on bf16 operands by its cost model (microseconds):
+    a launch, ``items`` solves, a scan of ``items`` x ``frozen`` codes and
+    ``work`` entries of :func:`walk_work` at capacity ``kp`` (8, 16, 24,
+    32) with ``operand`` (#2 on an operand of ``t_in`` rows: slower when
+    the bf16 rows of p pass :data:`HOISTED_L2_BYTES`)."""
+    miss = t_in is not None and 2 * t_in * frozen > HOISTED_L2_BYTES
+    return (WALK_LAUNCH_US + WALK_ITEM_US * items + WALK_ENTRY_US * items * frozen
+            + WALK_RATING_US[operand][kp] * work * (1 + WALK_P_MISS * miss))
+
+
+@functools.cache
+def sweep_bf16_kernel(items: int, frozen: int, work: Optional[int], k: int,
+                      operand: str = "inkernel", t_in: Optional[int] = None,
+                      code_bytes: int = 1, sms: int = 132) -> str:
+    """Which megakernel runs a half-sweep on bf16 operands: 'mma' (the
+    tensor-core kernel, dense over the code array) or 'walk' (the rated
+    entries a warp at a time, ``csrc/dense8_sweep_solve_bf16.cu``), for
+    ``items`` x ``frozen`` codes whose :func:`walk_work` is ``work``, K
+    ``k``, ``operand`` 'inkernel' (#1), 'tight' or 'aligned' (#2 on an
+    operand of ``t_in`` rows), on a card of ``sms`` SMs.  The walk with
+    ``work`` unknown (None), where the tensor-core kernel cannot run (K
+    past its capacities, a scratch past :data:`SCRATCH_LIMIT_BYTES`,
+    shared memory past a block's), and where its cost model's time
+    (:func:`sweep_walk_us`) is below the tensor-core kernel's
+    (:func:`sweep_mma_plan`'s ``us``)."""
+    if work is None or k > MMA_SWEEP_CAPACITIES[-1]:
+        return "walk"
+    kp = next(c for c in MMA_SWEEP_CAPACITIES if c >= k)
+    plan = sweep_mma_plan(items, frozen, kp, t_in, sms, code_bytes=code_bytes)
+    if (4 * math.prod(plan.scratch_shape) > SCRATCH_LIMIT_BYTES
+            or plan.smem_bytes > MMA_SMEM_LIMIT):
+        return "walk"
+    walk = sweep_walk_us(items, frozen, work, kp, operand, t_in)
+    return "mma" if plan.us < walk else "walk"
+
+
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -763,10 +948,11 @@ _arrivals: dict = {}
 
 
 def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The int32 arrival counters of the segmented kernels (the megakernel
-    and the Gram kernels) on one stream: zeroed once, and left zero by
-    every launch (its last block per item block, or tile, resets its
-    counter), so launches on the stream share them."""
+    """The int32 counters of the segmented kernels (the megakernels and
+    the Gram kernels: arrivals; the tensor-core megakernel also its
+    tickets and departures) on one stream: zeroed once, and left zero by
+    every launch (the last block to use a counter resets it), so launches
+    on the stream share them."""
     key = (device, stream)
     buf = _arrivals.get(key)
     if buf is None or buf.numel() < n:
@@ -789,14 +975,19 @@ def dense8_sweep_solve(
     layout: str = "aligned",  # 'aligned' | 'tight': p_t's packed_tri_t layout
     *,
     max_degree: Optional[int] = None,  # the side's most-rated item's ratings
+    walk_work: Optional[int] = None,   # the walk's work (:func:`walk_work`)
 ) -> torch.Tensor:
     """u_t [K, items]: the dense8 half-sweep in one kernel, with the
     signature and batch-last layout of ``bpmf_tpu.ops.dense8.
     dense8_sweep_solve``.  ``p_t=None`` forms the packed products in the
     kernel (#1, ``layout`` ignored); a given ``p_t`` is summed over each
     item's rated entries, reading only the valid rows of ``layout`` (#2).
-    ``v_t`` and ``p_t`` may be bf16 (lam, prior_rhs, noise_t float32; the
-    bf16 instances, rounding as the module docstring says).
+    ``v_t`` and ``p_t`` may be bf16 (lam, prior_rhs, noise_t float32;
+    rounding as the module docstring says): at K <= 32 the tensor-core
+    megakernel or the walk's bf16 instances, as :func:`sweep_bf16_kernel`
+    picks them from ``walk_work`` (:func:`walk_work` of ``codes`` in this
+    orientation; None: the walk; ``codes.numel()``: the most it can be, the
+    tensor cores wherever they fit), past it the walk.
     The JAX package's ``BPMF_D8_FOLD`` (the cb-term as K extra rows of p_t,
     which saves the TPU an MXU pass) has no counterpart at float32: the
     kernel weighs each rating by cs*code + cb on both routes, which changes
@@ -834,6 +1025,8 @@ def dense8_sweep_solve(
         if p_t.device != codes.device or p_t.dtype != v_t.dtype:
             raise ValueError(f"p_t is {p_t.dtype} on {p_t.device}, v_t "
                              f"{v_t.dtype} on {codes.device}")
+    if walk_work is not None and not 0 <= walk_work <= codes.numel():
+        raise ValueError(f"walk_work={walk_work} is outside 0..{codes.numel()}")
     if codes.device.type == "cpu":
         return dense8_sweep_solve_ref(codes, p_t, v_t, lam, prior_rhs, noise_t,
                                       cs, cb, alpha, orientation, layout)
@@ -851,9 +1044,14 @@ def dense8_sweep_solve(
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous (row-major)")
     operand = "inkernel" if p_t is None else layout
-    kp, runtime = sweep_instance(k, operand)
     dev = codes.device
     frozen = v_t.shape[1]
+    if suffix and sweep_bf16_kernel(items, frozen, walk_work, k, operand,
+                                    None if p_t is None else p_t.shape[0],
+                                    codes.element_size(), _sm_count(dev)) == "mma":
+        return _sweep_solve_mma(codes, p_t, v_t, lam, prior_rhs, noise_t, cs, cb,
+                                alpha, orientation, layout, items)
+    kp, runtime = sweep_instance(k, operand)
     plan = sweep_plan(items, frozen, kp, max_degree, _sm_count(dev))
     v, lam_c, prior, noise = _item_major(v_t, lam, prior_rhs, noise_t, kp)
     p = None if p_t is None else p_t.t().contiguous()  # [N, T]
@@ -884,6 +1082,71 @@ def dense8_sweep_solve(
     key = sweep_instance_key(k, operand, v_t.dtype)
     sweep_instance_launches[key] = sweep_instance_launches.get(key, 0) + 1
     return out[:, :k].t()
+
+
+def _sweep_solve_mma(codes, p_t, v_t, lam, prior_rhs, noise_t, cs, cb, alpha,
+                     orientation, layout, items):
+    """dense8_sweep_solve on bf16 CUDA operands at K <= 32: the tensor-core
+    kernel (``csrc/dense8_sweep_solve_mma.cu``) on :func:`sweep_mma_plan`'s
+    launch, the system padded block-diagonally to the next of
+    :data:`MMA_SWEEP_CAPACITIES`; counted under ``sweep_launches``' ``_bf16``
+    keys and as the instance :func:`sweep_mma_key`.  Raises on what the
+    kernel refuses and on a launch error."""
+    k = v_t.shape[0]
+    kp = next(c for c in MMA_SWEEP_CAPACITIES if c >= k)
+    dev = codes.device
+    frozen = v_t.shape[1]
+    v = v_t.contiguous() if kp == k else F.pad(v_t, (0, 0, 0, kp - k))  # [KP, N]
+    lam_c, prior, noise = _padded_system(lam, prior_rhs, noise_t, kp)
+    p = p_rows = None
+    if p_t is not None:
+        p = p_t.t().contiguous()                                          # [N, T]
+        p_rows = _entry_rows(k, layout, dev)
+    plan = sweep_mma_plan(items, frozen, kp, None if p is None else p.shape[1],
+                          _sm_count(dev), code_bytes=codes.element_size())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+    counters = _arrival_counters(dev, stream, plan.counters)
+    out = torch.empty((items, kp), dtype=torch.float32, device=dev)
+    r, c = codes.shape
+    err = _mma_sweep_kernel()(
+        codes.data_ptr(), codes.element_size(), r, c, int(orientation == "rows"),
+        kp, kp if p is None else k, v.data_ptr(), None if p is None else p.data_ptr(),
+        None if p_rows is None else p_rows.data_ptr(), 0 if p is None else p.shape[1],
+        lam_c.data_ptr(), prior.data_ptr(), noise.data_ptr(), cs, cb, alpha,
+        plan.groups, plan.segments, plan.chunks_per_segment, plan.smem_bytes,
+        partial.data_ptr(), counters.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dense8_sweep_solve_mma kernel launch failed: cudaError {err}")
+    operand = "inkernel" if p_t is None else layout
+    sweep_launches[operand + "_bf16"] += 1
+    key = sweep_mma_key(k, operand)
+    sweep_instance_launches[key] = sweep_instance_launches.get(key, 0) + 1
+    return out[:, :k].t()
+
+
+@functools.cache
+def sweep_mma_key(k: int, operand: str) -> str:
+    """The name of the tensor-core megakernel's instance that runs K with
+    ``operand`` on bf16 operands in :data:`sweep_instance_launches`:
+    '<operand>_mma_c<capacity>_bf16'."""
+    kp = next(c for c in MMA_SWEEP_CAPACITIES if c >= k)
+    return f"{operand}_mma_c{kp}_bf16"
+
+
+@functools.cache
+def _mma_sweep_kernel():
+    """The tensor-core megakernel's C entry point, bf16 operands (built on
+    first use)."""
+    from bpmf_tpu_torch.ops._build import load
+
+    fn = load("dense8_sweep_solve_mma").bpmf_dense8_sweep_solve_mma
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.restype = ctypes.c_int
+    fn.argtypes = [p, i, i, i, i, i, i, p, p, p, i, p, p, p, f, f, f, i, i, i, i,
+                   p, p, p, p]
+    return fn
 
 
 @functools.cache
@@ -928,14 +1191,21 @@ def _item_major(v_t, lam, prior_rhs, noise_t, kp):
     padded block-diagonally (zero columns, the identity, zero prior rhs and
     noise)."""
     k = v_t.shape[0]
+    v = v_t.t().contiguous() if kp == k else F.pad(v_t.t(), (0, kp - k)).contiguous()
+    return (v, *_padded_system(lam, prior_rhs, noise_t, kp))
+
+
+def _padded_system(lam, prior_rhs, noise_t, kp):
+    """lam [KP, KP], prior [KP] and noise [items, KP], row-major, padded
+    block-diagonally past K as :func:`_item_major` says."""
+    k = lam.shape[0]
     if kp == k:
-        return (v_t.t().contiguous(), lam.contiguous(),
-                prior_rhs.reshape(k).contiguous(), noise_t.t().contiguous())
+        return (lam.contiguous(), prior_rhs.reshape(k).contiguous(),
+                noise_t.t().contiguous())
     pad = (0, kp - k)
     lam_p = torch.eye(kp, dtype=lam.dtype, device=lam.device)
     lam_p[:k, :k] = lam
-    return (F.pad(v_t.t(), pad).contiguous(), lam_p,
-            F.pad(prior_rhs.reshape(k), pad), F.pad(noise_t.t(), pad).contiguous())
+    return lam_p, F.pad(prior_rhs.reshape(k), pad), F.pad(noise_t.t(), pad).contiguous()
 
 
 @functools.cache

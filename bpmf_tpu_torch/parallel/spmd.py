@@ -140,6 +140,7 @@ def dense8_half_sweep(
     grouped: bool = False,      # the packed-triangle solve's layout pin
     ablate: str = "",           # perf-debug (Config.ablate)
     max_degree: Optional[int] = None,  # the side's most-rated item's ratings
+    walk_work: Optional[int] = None,  # the walk's work (ops.dense8.walk_work)
     matmul_dtype=None,          # the kernels' operand dtype (torch.bfloat16:
                                 # bf16 matmul inputs); None: the frozen side's
 ) -> SideState:
@@ -158,7 +159,8 @@ def dense8_half_sweep(
     run on the split pipeline only, where the JAX package also sends them:
     ``nomatmul`` launches no Gram kernel, ``nosolve`` no solve kernel.
     ``max_degree`` sets how far the megakernel and the in-kernel Gram
-    split the frozen axis (``ops.dense8.sweep_plan``).  With a bf16
+    split the frozen axis (``ops.dense8.sweep_plan``); ``walk_work`` picks
+    the megakernel on bf16 operands (``ops.dense8.sweep_bf16_kernel``).  With a bf16
     ``matmul_dtype`` the kernels take the frozen side rounded to bf16 and
     the packed products of the rounded side, rounded
     (``bpmf_tpu/parallel/spmd.py:834-866``)."""
@@ -178,7 +180,8 @@ def dense8_half_sweep(
         prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
         u = dense8_sweep_solve(codes, p_t, v_t, hp.lambda_f, prior_rhs,
                                noise.t(), cs, cb, alpha, orientation,
-                               layout=layout, max_degree=max_degree).t()
+                               layout=layout, max_degree=max_degree,
+                               walk_work=walk_work).t()
     elif route in ("inkernel", "hoisted"):
         n_items = noise.shape[0]
         if "nomatmul" in ablates:

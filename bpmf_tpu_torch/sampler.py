@@ -66,6 +66,7 @@ from bpmf_tpu_torch.ops.dense8 import (
     build_code_array,
     d8_route,
     quantize_values,
+    walk_work,
 )
 from bpmf_tpu_torch.ops.mvnormal import (
     HyperDraws,
@@ -517,6 +518,16 @@ class BPMF:
                     self.users.maps.ids_per_dev[self.rank]].max(initial=0)),
                 "movs": int(np.bincount(coo.col[keep], minlength=1).max()),
             }
+            # on bf16 operands, each side's walk work (ops.dense8.walk_work):
+            # sweep_bf16_kernel picks the tensor cores or the walk by it
+            self._d8_walk = dict.fromkeys(self._d8_max_degree)
+            if self._md == torch.bfloat16:
+                sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+                       if dev.type == "cuda" else 132)
+                for name, orientation in (("users", "rows"), ("movs", "cols")):
+                    self._d8_walk[name] = walk_work(
+                        self._codes, orientation, cfg.num_latent,
+                        self._d8_max_degree[name], sms)
 
         self._aux = {side.name: self._side_aux(side, other)
                      for side, other in ((self.movies, self.users),
@@ -847,7 +858,7 @@ class BPMF:
                 orientation=orientation, route=side.route,
                 prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
                 grouped=self.grouped, max_degree=self._d8_max_degree[side.name],
-                matmul_dtype=md, **common)
+                walk_work=self._d8_walk[side.name], matmul_dtype=md, **common)
         if side.route == "fused":
             return dense_half_sweep_fused(
                 state, *aux.dense, other_items, hp, noise, it,

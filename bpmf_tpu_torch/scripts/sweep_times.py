@@ -2,7 +2,8 @@
 checkouts of this repository on one card.
 
     python bpmf_tpu_torch/scripts/sweep_times.py [--root DIR] [--label NAME]
-        [--legs tall,ml1m,random,wide,instances,split,blast,hoisted,bf16,probe]
+        [--legs tall,ml1m,random,wide,instances,split,blast,hoisted,bf16,
+               mega_bf16,probe]
 
 Imports ``bpmf_tpu_torch`` from DIR (default: the checkout this file lies
 in), so one copy of the script times any tree whose megakernel has the
@@ -69,6 +70,22 @@ Prints one JSON line with a key per leg (default: tall, ml1m, random):
   :func:`bf16_random`), then the ml-1m synth and the chembl synth at K=64
   as ``split`` runs them (the ml-1m sides on #3, the chembl compounds on
   #4 and its proteins on #3);
+* ``mega_bf16``: the megakernel on bf16 operands, #1 and #2 (tight,
+  aligned) at [6144, 4096], K=32, rows + cols, on random codes at every
+  density of :data:`MEGA_DENSITIES` from all zero (the code scan and the
+  per-item solve alone) to 4% (:func:`mega_bf16_times`), then #1 at bf16
+  on the chembl synth's and the ml-25M synth at half scale's own codes and
+  state at K=32 (:func:`mega_chain_times`): the two ends of the densities
+  the bench's legs run;
+* ``ml1m_bf16``: the ml-1m synth's chain at K=32 on bf16 operands (#1 on
+  both sides, by the route), three runs of ``--ml1m-iters`` iterations
+  after a warm chunk of 50: ms/iter, host-paced (any tree);
+* ``bf16_choice``: #1 and #2 on bf16 operands on the tensor-core kernel
+  and on the walk, each side of five chains' own state at K=32 (ml-1m,
+  ml-100k's 943 x 1682 with 100,000 ratings, the 3000 x 2000 dense
+  synth, the chembl synth, and ``synth_jester`` at Jester Dataset 1's
+  scale), beside both cost models' times and the kernel
+  ``sweep_bf16_kernel`` picks (:func:`bf16_choice_times`);
 * ``probe``: the gather probes #9A, #9B, #9C and ``embedding_bag`` (the
   same function in one PyTorch call) at the JAX script's shapes (R = W =
   512, NV = 32768, K = 32), at R = 8192, B and ``embedding_bag`` at NV =
@@ -664,6 +681,185 @@ def bf16_random(reps=25):
     return out
 
 
+MEGA_DENSITIES = (0.0, 0.0025, 0.005, 0.01, 0.02, 0.04, 0.08, 0.16)
+MEGA_KS = (32, 24, 16, 8)   # the tensor-core megakernel's capacities
+
+
+def mega_inputs(orientation, density, k=32, seed=0):
+    """The megakernel's inputs at the padded ml-1m shape [6144, 4096]: int8
+    codes 1..5 rated with probability ``density`` (0: all zero), and the
+    frozen items (bf16), prior and noise of one half-sweep, from ``seed``."""
+    import torch
+
+    dev = torch.device("cuda")
+    shape = (6144, 4096)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.where(torch.rand(shape, generator=g, device=dev) < density,
+                        torch.randint(1, 6, shape, generator=g, device=dev),
+                        0).to(torch.int8)
+    items, frozen = shape if orientation == "rows" else shape[::-1]
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    v_b = (0.5 * torch.randn((k, frozen), generator=g, device=dev)).bfloat16()
+    w = torch.randn((k, k), generator=g, device=dev)
+    lam = w @ w.T / k + torch.eye(k, device=dev)
+    prior_rhs = torch.randn((k, 1), generator=g, device=dev)
+    noise_t = torch.randn((k, items), generator=g, device=dev)
+    return codes, v_b, lam, prior_rhs, noise_t
+
+
+def mega_bf16_times(reps=25, cs=0.7, cb=-1.3, alpha=2.0):
+    """#1 and #2 (tight, aligned) on bf16 operands (the tree's tensor-core
+    kernel where it has one, forced by ``walk_work`` the code array's size, else
+    the walk) at [6144, 4096], rows +
+    cols summed, at every density of :data:`MEGA_DENSITIES` (0: the code
+    scan and the per-item solve alone): per launch (:func:`per_launch_ms`)
+    and the median single call, at K=32 (``d<density>``) and at the other
+    K of :data:`MEGA_KS` (``k<K>_d<density>``); at K=32 and 4% also
+    the plain version, the library chain (:func:`bf16_library` with its
+    solve) and #1 on the same inputs in float32."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    # a tree with the tensor-core kernel: forced by every entry rated
+    full = "walk_work" in inspect.signature(d8.dense8_sweep_solve).parameters
+    out = {}
+    for k, density in [(k, d) for k in MEGA_KS for d in MEGA_DENSITIES]:
+        cell = {}
+        for seed, orientation in enumerate(("rows", "cols")):
+            codes, v_b, lam, prior, noise = mega_inputs(orientation, density, k, seed)
+            kw = {"walk_work": codes.numel()} if full else {}
+            for name in ("inkernel", "tight", "aligned"):
+                p_t = (None if name == "inkernel" else
+                       d8.packed_tri_t(v_b.float(), aligned=name == "aligned").bfloat16())
+                layout = "aligned" if p_t is None else name
+
+                def call(v=v_b, p_t=p_t, layout=layout, kw=kw):
+                    return d8.dense8_sweep_solve(codes, p_t, v, lam, prior, noise, cs,
+                                                 cb, alpha, orientation, layout=layout,
+                                                 **kw)
+                times = {"per_launch_ms": per_launch_ms(call),
+                         "ms": median_ms(call, reps)}
+                if density == 0.04 and k == 32:
+                    times["plain_ms"] = median_ms(lambda: d8.dense8_sweep_solve_ref(
+                        codes, p_t, v_b, lam, prior, noise, cs, cb, alpha,
+                        orientation, layout), 5)
+                    times["library_ms"] = median_ms(lambda: bf16_library(
+                        codes, p_t, v_b, cs, cb, orientation,
+                        (lam, prior, noise, alpha, layout)), reps)
+                    if name == "inkernel":
+                        v32 = v_b.float()
+                        times["float32_per_launch_ms"] = per_launch_ms(
+                            lambda: call(v=v32))
+                        times["float32_ms"] = median_ms(lambda: call(v=v32), reps)
+                for key, t in times.items():
+                    cell[f"{name}_{key}"] = cell.get(f"{name}_{key}", 0.0) + t
+        out[f"d{density}" if k == 32 else f"k{k}_d{density}"] = cell
+    return out
+
+
+def mega_chain_times(bpmf, cfg, train, test, reps=10):
+    """#1 on bf16 operands on a chain's own codes and state (a bf16 chain
+    after one iteration), each side: the median single call and per
+    launch, with the side's rated share of the padded code array."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    s = bpmf(cfg(num_latent=32, burnin=2, nsims=4, matmul_dtype="bfloat16"),
+             train, test, out=open(os.devnull, "w"), device="cuda")
+    s.run_chunk(1)
+    out = {"density": float((s._codes != 0).sum()) / s._codes.numel(),
+           "shape": list(s._codes.shape)}
+    for side, rows in (("users", True), ("movies", False)):
+        state, frozen = ((s.state_u, s.state_m) if rows else (s.state_m, s.state_u))
+        hp = state.hp
+        v_b = frozen.items.t().bfloat16()
+        k, items = v_b.shape[0], state.items.shape[0]
+        noise = torch.randn((k, items), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+        kw = {}
+        params = inspect.signature(d8.dense8_sweep_solve).parameters
+        if "max_degree" in params:
+            kw["max_degree"] = int(getattr(s, side).degrees.max())
+        if "walk_work" in params:   # the tensor-core kernel, forced
+            kw["walk_work"] = s._codes.numel()
+
+        def call():
+            return d8.dense8_sweep_solve(
+                s._codes, None, v_b, hp.lambda_f, (hp.lambda_f @ hp.mu)[:, None],
+                noise, s._d8_cs, s._d8_cb, s.cfg.alpha, "rows" if rows else "cols",
+                **kw)
+        out[f"inkernel_{side}_ms"] = median_ms(call, reps)
+        out[f"inkernel_{side}_per_launch_ms"] = per_launch_ms(call, 20)
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_choice_times(bpmf, cfg, train, test, n=20):
+    """#1 and #2 (tight, aligned) on bf16 operands on a chain's own codes
+    and state (a bf16 chain at K=32 after one iteration), each side, on
+    both kernels: the walk (``walk_work=0``) and the tensor-core kernel
+    (``walk_work`` the code array's size), per launch over ``n`` launches,
+    each asserted launched by its instance; beside them the cost models'
+    times (``sweep_mma_plan``'s ``us``, ``sweep_walk_us`` at the side's
+    ``walk_work``, both in ms) and the kernel ``sweep_bf16_kernel`` picks
+    there."""
+    import torch
+
+    from bpmf_tpu_torch.ops import dense8 as d8
+
+    s = bpmf(cfg(num_latent=32, burnin=2, nsims=4, matmul_dtype="bfloat16"),
+             train, test, out=open(os.devnull, "w"), device="cuda")
+    s.run_chunk(1)
+    codes = s._codes
+    nnz = int((codes != 0).sum())
+    out = {"shape": list(codes.shape), "nnz": nnz, "density": nnz / codes.numel(),
+           "routes": [s.users.route, s.movies.route], "walk_work": s._d8_walk}
+    sms = d8._sm_count(codes.device)
+    for side, rows in (("users", True), ("movies", False)):
+        state, frozen = ((s.state_u, s.state_m) if rows else (s.state_m, s.state_u))
+        hp = state.hp
+        v_b = frozen.items.t().bfloat16()
+        k, items = v_b.shape[0], state.items.shape[0]
+        noise = torch.randn((k, items), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+        degree = int(getattr(s, side).degrees.max())
+        work = s._d8_walk["users" if rows else "movs"]
+        for op in ("inkernel", "tight", "aligned"):
+            p_t = (None if op == "inkernel" else
+                   d8.packed_tri_t(v_b.float(), aligned=op == "aligned").bfloat16())
+            t_in = None if p_t is None else p_t.shape[0]
+            cell = {"mma_model_ms": d8.sweep_mma_plan(
+                        items, v_b.shape[1], k, t_in, sms,
+                        code_bytes=codes.element_size()).us / 1e3,
+                    "walk_model_ms": d8.sweep_walk_us(items, v_b.shape[1], work, k,
+                                                      op, t_in) / 1e3,
+                    "picked": d8.sweep_bf16_kernel(items, v_b.shape[1], work, k, op,
+                                                   t_in, codes.element_size(), sms)}
+            for kern, force in (("walk", 0), ("mma", codes.numel())):
+                key = (d8.sweep_mma_key(k, op) if kern == "mma"
+                       else d8.sweep_instance_key(k, op, torch.bfloat16))
+
+                def call(force=force, p_t=p_t):
+                    return d8.dense8_sweep_solve(
+                        codes, p_t, v_b, hp.lambda_f, (hp.lambda_f @ hp.mu)[:, None],
+                        noise, s._d8_cs, s._d8_cb, s.cfg.alpha,
+                        "rows" if rows else "cols",
+                        layout="aligned" if op == "inkernel" else op,
+                        max_degree=degree, walk_work=force)
+                before = d8.sweep_instance_launches.get(key, 0)
+                call()
+                torch.cuda.synchronize()
+                assert d8.sweep_instance_launches.get(key, 0) == before + 1, key
+                cell[f"{kern}_per_launch_ms"] = per_launch_ms(call, n)
+            out[f"{side}_{op}"] = cell
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -673,8 +869,9 @@ def main(argv=None):
     ap.add_argument("--tall-iters", type=int, default=10)
     ap.add_argument("--ml1m-iters", type=int, default=200)
     ap.add_argument("--legs", default="tall,ml1m,random",
-                    help="comma-separated: tall, ml1m, random, wide, instances, "
-                         "split, blast, hoisted, bf16, probe")
+                    help="comma-separated: tall, ml1m, ml1m_bf16, bf16_choice, "
+                         "random, wide, instances, split, blast, hoisted, bf16, "
+                         "mega_bf16, probe")
     a = ap.parse_args(argv)
     legs = a.legs.split(",")
     root = os.path.abspath(a.root)
@@ -711,6 +908,28 @@ def main(argv=None):
                        "inkernel_users_ms": sweep_timer(s, "users", 25)("inkernel"),
                        "inkernel_movies_ms": sweep_timer(s, "movies", 25)("inkernel")}
         del s
+    if "ml1m_bf16" in legs:
+        runs = []
+        for _ in range(3):
+            s, ms = chain(BPMF, Config, train, test, 50, a.ml1m_iters,
+                          matmul_dtype="bfloat16")
+            assert s.users.route == s.movies.route == "fused"
+            runs.append(ms)
+            del s
+        out["ml1m_bf16"] = {"ms_per_iter": runs, "iterations": a.ml1m_iters}
+    if "bf16_choice" in legs:
+        from bpmf_tpu_torch import synth_jester
+
+        ctrain, ctest = synth_chembl()
+        out["bf16_choice"] = {
+            "ml1m": bf16_choice_times(BPMF, Config, train, test),
+            "ml100k": bf16_choice_times(BPMF, Config, *synth_movielens(
+                n_users=943, n_movies=1682, n_ratings=100_000, seed=100)),
+            "dense3000": bf16_choice_times(BPMF, Config, *synth_movielens(
+                n_users=3000, n_movies=2000, n_ratings=1_250_000, seed=26)),
+            "chembl": bf16_choice_times(BPMF, Config, ctrain, ctest),
+            "jester": bf16_choice_times(BPMF, Config, *synth_jester())}
+        del ctrain, ctest
     if "random" in legs:
         out["random"] = random_times()
     if "wide" in legs:
@@ -758,6 +977,15 @@ def main(argv=None):
             "chembl_k64": split_chain(BPMF, Config, ctrain, ctest, 64, 5, 20,
                                       matmul_dtype="bfloat16")}
         del ctrain, ctest
+    if "mega_bf16" in legs:
+        ctrain, ctest = synth_chembl()
+        mtrain, mtest = synth_movielens(n_users=81_270, n_movies=29_523,
+                                        n_ratings=6_250_000, seed=25)
+        out["mega_bf16"] = {
+            "random_k32": mega_bf16_times(),
+            "chembl_k32": mega_chain_times(BPMF, Config, ctrain, ctest),
+            "ml25m_half_k32": mega_chain_times(BPMF, Config, mtrain, mtest)}
+        del ctrain, ctest, mtrain, mtest
     if "probe" in legs:
         out["probe"] = probe_times()
     out["device"] = torch.cuda.get_device_name(0)

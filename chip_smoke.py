@@ -200,7 +200,12 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
   26. bf16   bf16 matmul inputs (Config.matmul_dtype="bfloat16", the JAX
               package's own main path on a TPU; cs = 0.7, cb = -1.3, which
               bf16 does not hold): #1 and #2 (tight, aligned) at phase 3's
-              [6144, 4096], K=32, and #3/#4 (the tensor-core Gram,
+              [6144, 4096], K=32, each on both of its bf16 kernels (the
+              tensor-core megakernel, csrc/dense8_sweep_solve_mma.cu, with
+              walk_work the code array's size; the walk, walk_work = 0;
+              ops.dense8.sweep_bf16_kernel's cost models), the launch counted
+              under its instance, the tensor-core one beside its dense
+              floor, and #3/#4 (the tensor-core Gram,
               csrc/dense8_gram_mma.cu) at K=64 and 79, rows + cols, on bf16
               operands against their plain versions at KERNEL_TOL, the
               solves also item by item against the float64 draw of the same
@@ -219,6 +224,13 @@ plain version and the float64 draw, item by item (SOLVE_BOUND).
               dense chain (2 of 250, the dense blocks in bf16, within 0.005
               of its float32 twin); each finite, its launches counted on the
               bf16 instances only, and 3 iterations against the plain chain;
+              synth_jester at Jester Dataset 1's scale (73,421 users x 100
+              jokes, 4.1M ratings, 10% of the padded array) at K=32, 2 of
+              50 on #1 and under both #2 knobs, each side on the kernel
+              sweep_bf16_kernel picks by the cost models (the jokes on the
+              tensor cores), and the chembl synth at K=32 under both #2
+              knobs (2 of 50 each, 0.63% rated: the compounds on the
+              walk), each 3 iterations against the plain chain;
               last phase 9's chembl K=64 chain at bf16 (2 of 50: #4 on the
               compounds, #3 on the proteins) within 0.01 of phase 9's
               rmse_avg, then #3/#4 on its own codes and last state; each
@@ -268,7 +280,9 @@ After the #1 chains of phases 9 and 12 and phase 17's chain, the
 megakernel runs once more on each side, on the chain's own code array,
 scales and last state: each item's draw against the float64 draw of its
 system within SOLVE_BOUND, its max_abs_err against the plain version in
-the kernels line.
+the kernels line; after phases 9 and 12 (the sparse ends of the
+densities, 0.63% and 0.23%) also #1 on bf16 operands (the frozen side
+rounded), the tensor-core megakernel's launch, held the same way.
 After each of phases 7-9, every split kernel of that chain runs once more
 on the chain's own code array and last state against its plain version:
 the skewed degrees of the real layouts (items with more rated entries than
@@ -322,7 +336,7 @@ SOLVE_BOUND = {"per_item": "u*kappa_F(A)*|u|_2 + atol", "u": 2.0 ** -24,
                "atol": 1e-5}
 LIBS = ("dense8_sweep_solve", "dense8_gram_rhs", "tri_combine_solve",
         "chol_solve_sample", "gather_probe", "dense8_sweep_solve_bf16",
-        "dense8_gram_mma")
+        "dense8_gram_mma", "dense8_sweep_solve_mma")
 PROBE_TOL = dict(rtol=1e-4, atol=1e-4)  # sums of 512 f32 terms, other order
 DEFER_TOL = dict(rtol=1e-6, atol=0.0)   # the same predictions, gathered at once
 PAVG_TOL = dict(rtol=1e-5, atol=0.0)    # f32 on the card, float64 from the file
@@ -595,8 +609,9 @@ def plain_kernels():
     from bpmf_tpu_torch.ops import pallas_solve as ps
 
     plain = {
-        # the plain version has no segments to split by the side's degree
-        "dense8_sweep_solve": lambda *args, max_degree=None, **kw:
+        # the plain version has no segments to split by the side's degree,
+        # and no choice of megakernel by the density
+        "dense8_sweep_solve": lambda *args, max_degree=None, walk_work=None, **kw:
             d8.dense8_sweep_solve_ref(*args, **kw),
         "dense8_gram_rhs_rows": lambda c, p, v, cs, cb, max_degree=None:
             d8.dense8_gram_rhs_ref(c, p, v, cs, cb, "rows"),
@@ -1764,7 +1779,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
-    from bpmf_tpu_torch import Config, synth_chembl, synth_movielens
+    from bpmf_tpu_torch import Config, synth_chembl, synth_jester, synth_movielens
     from bpmf_tpu_torch.device import card_power
     from bpmf_tpu_torch.io import native
     from bpmf_tpu_torch.ops import dense8 as d8
@@ -1884,6 +1899,7 @@ def main():
     result = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                      "library_ms": 0.0, "nbytes": 0, "flops": 0}
               for name in ("inkernel", "tight", "aligned")}
+    mega_chain = {}   # the tensor-core megakernel on chains' own states (bf16)
 
     def sweep_record(name, args, orientation, inputs, k=K, headline=False,
                      where=None, cs=cs, max_degree=None, row=None):
@@ -2108,7 +2124,7 @@ def main():
                    inputs=inputs, shape=codes.shape, f64=(args, lt, gr),
                    work=(s_bytes, solve_flops(k, b) + 2 * tvk * b), **info)
 
-    def chain_sweep(sampler, inputs, operands):
+    def chain_sweep(sampler, inputs, operands, bf16=False):
         """The megakernels once more on a chain's own code array, scales and
         last state (a fresh noise draw), for each (orientation, operand) of
         ``operands`` (inkernel: #1; tight: #2): a second launch equal to
@@ -2118,8 +2134,11 @@ def main():
         plain version's ratio beside it; max_abs_err against the plain
         version.  One JSON line each, and its times and bound under
         ``<key>_<where>_<orientation>`` of its kernels-line row (``where``:
-        ``inputs``, underscored).  Returns each orientation's launch as
-        ``call(codes)``."""
+        ``inputs``, underscored).  With ``bf16``, on the frozen side
+        rounded to bf16: the tensor-core megakernel (``walk_work`` the
+        code array's size, where its cost model wins), its rows under
+        ``mega_chain``.  Returns each orientation's
+        launch as ``call(codes)``."""
         codes, scs, scb = sampler._codes, sampler._d8_cs, sampler._d8_cb
         alpha_c, where = sampler.cfg.alpha, inputs.replace(" ", "_")
         sides = {"rows": (sampler.users, sampler.state_u, sampler.state_m),
@@ -2128,6 +2147,8 @@ def main():
         for orientation, name in operands:
             side, state, frozen = sides[orientation]
             hp, v_t = state.hp, frozen.items.t()
+            if bf16:
+                v_t = v_t.to(torch.bfloat16)
             k, items = v_t.shape[0], state.items.shape[0]
             noise_t = torch.randn((k, items), device="cuda")
             prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
@@ -2137,12 +2158,17 @@ def main():
 
             def call(c=codes, p_t=p_t, args=args, deg=side.max_degree):
                 return dense8_sweep_solve(c, p_t, *args, layout="tight",
-                                          max_degree=deg)
+                                          max_degree=deg,
+                                          walk_work=c.numel() if bf16 else None)
 
             def plain(p_t=p_t, args=args):
                 return dense8_sweep_solve_ref(codes, p_t, *args, layout="tight")
+            mma = d8.sweep_mma_key(k, name)
+            before = d8.sweep_instance_launches.get(mma, 0)
             got = call()
             torch.cuda.synchronize()
+            # at bf16 the launch was the tensor-core kernel's
+            assert not bf16 or d8.sweep_instance_launches.get(mma, 0) == before + 1
             assert torch.equal(got, call())
             want = plain()
             worst, err64, kappa = solve_vs_f64(
@@ -2152,23 +2178,34 @@ def main():
             r = {"max_abs_err": float((got - want).abs().max()),
                  "ms": median_ms(call, 10, 2), "plain_ms": median_ms(plain, 3, 1)}
             del got, want
-            work = bound(*sweep_work((codes, v_t, None, None, noise_t), p_t,
-                                     "tight"))
+            nbytes, flops = sweep_work((codes, v_t, None, None, noise_t), p_t, "tight")
+            extra = {"segments": d8.sweep_plan(items, v_t.shape[1], k, side.max_degree,
+                                               d8._sm_count(codes.device)).segments}
+            if bf16:   # the tensor-core kernel: its work by type, its floor
+                wk = bf16_gram_work(k, int((codes != 0).sum()), v_t.shape[1], True)
+                wk["flops"] += solve_flops(k, items) + k * (k + 1) * items
+                work = bound(nbytes, **wk)
+                extra = {"operands": "bfloat16", "instance": d8.sweep_mma_key(k, name),
+                         "segments": d8.sweep_mma_plan(
+                             items, v_t.shape[1], k, None, d8._sm_count(codes.device),
+                             code_bytes=codes.element_size()).segments,
+                         "dense_floor_ms": 1e3 * 2 * items * v_t.shape[1]
+                         * (k * (k + 1) // 2 + 2 * k) / BF16_MMA_FLOPS_PER_S}
+            else:
+                work = bound(nbytes, flops)
             emit({"phase": "kernel", "kernel": "dense8_sweep_solve",
                   "operand": name, "inputs": inputs, "orientation": orientation,
-                  "side": side.name, "max_degree": side.max_degree,
-                  "segments": d8.sweep_plan(items, v_t.shape[1], k,
-                                            side.max_degree,
-                                            d8._sm_count(codes.device)).segments,
+                  "side": side.name, "max_degree": side.max_degree, **extra,
                   "shape": list(codes.shape), "k": k, "tolerance": SOLVE_BOUND,
                   "err_over_bound": worst[0], "plain_err_over_bound": worst[1],
                   "err_vs_f64": err64[0], "plain_err_vs_f64": err64[1],
                   "max_kappa_f": kappa, **r, **work, **tag})
             assert worst[0] <= 1.0, (inputs, side.name, worst, err64)
-            res = result[name]
+            res = mega_chain.setdefault(name, {"max_abs_err": 0.0}) if bf16 else result[name]
             res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
-            for key in ("ms", "plain_ms", "bound_ms"):
-                res[f"{key}_{where}_{orientation}"] = {**r, **work}[key]
+            for key in ("ms", "plain_ms", "bound_ms", "dense_floor_ms"):
+                if key in {**r, **work, **extra}:
+                    res[f"{key}_{where}_{orientation}"] = {**r, **work, **extra}[key]
             calls[orientation] = call
         torch.cuda.empty_cache()
         return calls
@@ -2459,6 +2496,10 @@ def main():
     assert abs(chain_rmse["chembl"] - BENCH_ANCHORS["chembl"]) <= RMSE_BAND
     chain_sweep(sampler, "chembl K32 chain", (("rows", "inkernel"),
                                               ("cols", "inkernel")))
+    # the sparse end of the densities (0.63%): #1 on bf16 operands, the
+    # tensor-core kernel, on the same state
+    chain_sweep(sampler, "chembl K32 chain bf16", (("rows", "inkernel"),
+                                                   ("cols", "inkernel")), bf16=True)
     del sampler
 
     # 10. kernel8: the batched solve (#8) against plain and torch.linalg
@@ -2593,6 +2634,9 @@ def main():
     assert abs(chain_rmse["ml25m_half"] - RMSE_AVG_ML25M_HALF) <= RMSE_BAND
     chain_sweep(sampler, "ml25m half chain", (("rows", "inkernel"),
                                               ("cols", "inkernel")))
+    # the sparsest (0.23%): the same at bf16 on the tensor-core kernel
+    chain_sweep(sampler, "ml25m half chain bf16", (("rows", "inkernel"),
+                                                   ("cols", "inkernel")), bf16=True)
     del sampler
     torch.cuda.reset_peak_memory_stats()
     sampler, mets, chunk_s, setup_s, n = drive(ml25m(gram_impl="bucketed"),
@@ -3292,18 +3336,23 @@ def main():
     t26 = time.perf_counter()
     bf = torch.bfloat16
     cs26, cb26 = CS_BF16, CB_BF16
+    # the megakernel's rows by operand and kernel: "mma" the tensor-core
+    # kernel, "walk" the rated entries' (the bf16 instances of
+    # dense8_sweep_solve.cuh), which ops.dense8.sweep_bf16_kernel picks
+    # below the crossover density
+    MEGA = [(name, kern) for name in ("inkernel", "tight", "aligned")
+            for kern in ("mma", "walk")]
     bf16_rows = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                         "library_ms": 0.0, "nbytes": 0, "flops": 0,
                         "bf16_mma": 0, "bf16_vec": 0}
-                 for name in ("inkernel", "tight", "aligned", "gram_inkernel",
-                              "gram_hoisted")}
+                 for name in (*MEGA, "gram_inkernel", "gram_hoisted")}
 
     def bf16_record(name, r, nbytes, work, **info):
         """One bf16 kernel against plain: a JSON line, and its times and
         bound (``work``: bf16_gram_work's) summed into its kernels-line row
         (rows + cols)."""
-        emit({"phase": "bf16", "kernel": name, **info, **r, **work,
-              **bound(nbytes, **work), **tag})
+        emit({"phase": "bf16", "kernel": "_".join(name) if isinstance(name, tuple) else name,
+              **info, **r, **work, **bound(nbytes, **work), **tag})
         row = bf16_rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
         for key, v in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]),
@@ -3363,42 +3412,59 @@ def main():
                 p_t = d8.packed_tri_t(v_b.float(), aligned=name == "aligned").to(bf)
                 layout = name
 
-            def call():
-                return dense8_sweep_solve(codes, p_t, v_b, lam, prior_rhs, noise_t,
-                                          cs26, cb26, alpha, orientation, layout=layout)
-
             def plain():
                 return dense8_sweep_solve_ref(codes, p_t, v_b, lam, prior_rhs, noise_t,
                                               cs26, cb26, alpha, orientation, layout)
-            got = call()
-            torch.cuda.synchronize()
-            assert torch.equal(got, call())
             want = plain()
-            torch.testing.assert_close(got, want, **KERNEL_TOL)
-            worst, err64, kappa = solve_vs_f64(
-                d8_system64(codes, v_b, lam, alpha, orientation),
-                d8_rhs64(codes, v_b, prior_rhs, cs26, cb26, orientation,
-                         fold=p_t is not None),
-                noise_t.t(), [got.t(), want.t()])
-            r = {"max_abs_err": float((got - want).abs().max()),
-                 "ms": median_ms(call), "plain_ms": median_ms(plain),
-                 "library_ms": median_ms(lambda: bf16_library(
-                     codes, p_t, v_b, cs26, cb26, orientation,
-                     (lam, prior_rhs, noise_t, alpha, layout)))}
+            system = d8_system64(codes, v_b, lam, alpha, orientation)
+            rhs64 = d8_rhs64(codes, v_b, prior_rhs, cs26, cb26, orientation,
+                             fold=p_t is not None)
+            shared = {"plain_ms": median_ms(plain),
+                      "library_ms": median_ms(lambda: bf16_library(
+                          codes, p_t, v_b, cs26, cb26, orientation,
+                          (lam, prior_rhs, noise_t, alpha, layout)))}
             nbytes = sweep_work((codes, v_b, lam, prior_rhs, noise_t), p_t,
                                 layout)[0]
-            work = bf16_gram_work(K, int((codes != 0).sum()), v_b.shape[1],
-                                  p_t is None)
-            n_items = noise_t.shape[1]   # the combine and the solve, float32
-            work["flops"] += solve_flops(K, n_items) + K * (K + 1) * n_items
-            bf16_record(name, r, nbytes, work, orientation=orientation, k=K,
-                        shape=list(codes.shape), operands="bfloat16",
-                        instance=d8.sweep_instance_key(K, name, bf),
-                        tolerance=KERNEL_TOL, solve_bound=SOLVE_BOUND,
-                        err_over_bound=worst[0], plain_err_over_bound=worst[1],
-                        err_vs_f64=err64[0], max_kappa_f=kappa,
-                        bitwise_repeated=True)
-            assert worst[0] <= 1.0, (name, orientation, worst, err64)
+            n_items, n_frozen = noise_t.shape[1], v_b.shape[1]
+            # the tensor-core kernel with every entry rated, the walk with
+            # none (sweep_bf16_kernel's cost models); each launch counted
+            # under its instance
+            for kern, work in (("mma", codes.numel()), ("walk", 0)):
+                key = (d8.sweep_mma_key(K, name) if kern == "mma"
+                       else d8.sweep_instance_key(K, name, bf))
+
+                def call(work=work):
+                    return dense8_sweep_solve(codes, p_t, v_b, lam, prior_rhs, noise_t,
+                                              cs26, cb26, alpha, orientation,
+                                              layout=layout, walk_work=work)
+                before = d8.sweep_instance_launches.get(key, 0)
+                got = call()
+                torch.cuda.synchronize()
+                assert d8.sweep_instance_launches.get(key, 0) == before + 1, key
+                assert torch.equal(got, call())
+                torch.testing.assert_close(got, want, **KERNEL_TOL)
+                worst, err64, kappa = solve_vs_f64(system, rhs64, noise_t.t(),
+                                                   [got.t(), want.t()])
+                r = {"max_abs_err": float((got - want).abs().max()),
+                     "ms": median_ms(call), **shared}
+                work = bf16_gram_work(K, int((codes != 0).sum()), n_frozen, p_t is None)
+                # the combine and the solve, float32
+                work["flops"] += solve_flops(K, n_items) + K * (K + 1) * n_items
+                info = {}
+                if kern == "mma":   # its work whatever the density
+                    floor = (1e3 * 2 * n_items * n_frozen * (K * (K + 1) // 2 + 2 * K)
+                             / BF16_MMA_FLOPS_PER_S)
+                    info["dense_floor_ms"] = floor
+                    row = bf16_rows[(name, kern)]
+                    row["dense_floor_ms"] = row.get("dense_floor_ms", 0.0) + floor
+                bf16_record((name, kern), r, nbytes, work, orientation=orientation, k=K,
+                            shape=list(codes.shape), operands="bfloat16", instance=key,
+                            tolerance=KERNEL_TOL, solve_bound=SOLVE_BOUND,
+                            err_over_bound=worst[0], plain_err_over_bound=worst[1],
+                            err_vs_f64=err64[0], max_kappa_f=kappa,
+                            bitwise_repeated=True, **info)
+                assert worst[0] <= 1.0, (name, kern, orientation, worst, err64)
+            del system, rhs64
         # the split Gram (the tensor-core kernel) at K=64 and 79 on bf16
         # operands; K=64 is the kernels line's row
         for k in (64, 79):
@@ -3435,8 +3501,11 @@ def main():
         want = dense8_sweep_solve_ref(args[0], p_t, v_b, *args[2:], cs26, cb26,
                                       alpha, "rows", layout)
         torch.testing.assert_close(got, want, **KERNEL_TOL)
+        kern = d8.sweep_bf16_kernel(*args[0].shape, None, k, name,
+                                    None if p_t is None else p_t.shape[0])
         emit({"phase": "bf16", "kernel": "dense8_sweep_solve", "operand": name,
-              "k": k, "instance": d8.sweep_instance_key(k, name, bf),
+              "k": k, "instance": (d8.sweep_mma_key(k, name) if kern == "mma"
+                                   else d8.sweep_instance_key(k, name, bf)),
               "max_abs_err": float((got - want).abs().max()),
               "tolerance": KERNEL_TOL})
     del args, codes, v_t, v_b, got, want
@@ -3446,6 +3515,9 @@ def main():
         its routes, its launches (the bf16 instances only), finite
         metrics; returns (sampler, metrics, its JSON line)."""
         sampler, mets, chunk_s, setup_s, n = drive(make, counts, chunks_n, iters_n)
+        inst = counts.instances()   # the megakernel by instance: mma or walk
+        for key, c in inst.items():
+            total[key] = total.get(key, 0) + c
         assert sampler._md == bf
         got_routes = {s.name: s.route or s.impl for s in (sampler.movies, sampler.users)}
         assert got_routes == routes, got_routes
@@ -3455,7 +3527,11 @@ def main():
             total[key] = total.get(key, 0) + c
         line = {"phase": "bf16", "matmul_dtype": "bfloat16", **info,
                 "routes": got_routes, "iterations": chunks_n * iters_n,
-                "launches": n, "rmse_avg": float(mets[-1].rmse_avg[-1]),
+                "launches": n, "instances": inst,
+                "density": float((sampler._codes != 0).sum()) / sampler._codes.numel()
+                if sampler._codes is not None else None,
+                "walk_work": getattr(sampler, "_d8_walk", None),
+                "rmse_avg": float(mets[-1].rmse_avg[-1]),
                 "rmse": float(mets[-1].rmse[-1]),
                 **per_iter_stats(sampler, chunk_s, iters_n), "setup_s": setup_s,
                 **tag}
@@ -3539,7 +3615,75 @@ def main():
             (sampler.movies, "cols", "gram_inkernel", sampler.state_u)):
         gram26(sampler._codes, frozen.items.t().to(bf), orientation, name,
                headline=False, inputs="chembl_bf16_chain", side=side.name)
-    del sampler, ctrain, ctest
+    del sampler
+    def chosen(sampler, operand):
+        """The bf16 megakernel instances sweep_bf16_kernel names for a
+        chain's sides (its launches under the instance's key): rows, then
+        cols, s_done each."""
+        codes = sampler._codes
+        t_in = None if operand == "inkernel" else d8._sweep_rows(K, operand)
+        want = {}
+        for (items, frozen), side in ((codes.shape, "users"),
+                                      (codes.shape[::-1], "movs")):
+            kern = d8.sweep_bf16_kernel(items, frozen, sampler._d8_walk[side], K,
+                                        operand, t_in, codes.element_size(),
+                                        d8._sm_count(codes.device))
+            key = (d8.sweep_mma_key(K, operand) if kern == "mma"
+                   else d8.sweep_instance_key(K, operand, bf))
+            want[key] = want.get(key, 0) + s_done
+        return want
+
+    # the chembl synth at K=32 under both #2 knobs at bf16: its 167,424
+    # compounds (1.6 rated a protein) keep the walk, which the cost models
+    # put at 2.5x faster than the tensor cores there
+    def chembl32_bf16():
+        return BPMF(Config(num_latent=K, burnin=2, nsims=s_done,
+                           matmul_dtype="bfloat16"), ctrain, ctest, out=devnull,
+                    device="cuda")
+    for chain, knob, routes, operand in (
+            ("chembl k32 hoisted", {"BPMF_D8_PT": "hoisted"}, "fused_hoisted", "tight"),
+            ("chembl k32 aligned", {"BPMF_D8_SOLVE": "fused_aligned"}, "fused_aligned",
+             "aligned")):
+        with env(**knob):
+            sampler, mets, line = bf16_chain(
+                chembl32_bf16, s_chunks, s_iters, {"movs": routes, "users": routes},
+                launches(**{f"fused_{operand}_bf16": 2 * s_done}), chain=chain,
+                knob=knob)
+            want = chosen(sampler, operand)
+            assert d8.sweep_instance_key(K, operand, bf) in want, want  # compounds
+            assert line["instances"] == want, (line, want)
+            err = check_first_iterations(chembl32_bf16, mets[0], counts)
+        emit({**line, "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL})
+        del sampler
+    del ctrain, ctest
+    # the dense ratings of Jester Dataset 1's scale (synth_jester: 73,421
+    # users rate 15-100 of 100 jokes): sweep_bf16_kernel's cost models put
+    # the jokes (512 padded items, 73,728 frozen) on the tensor cores and
+    # the users on either kernel by the operand; each side's launches on
+    # the instance the choice names, 3 iterations against the plain chain
+    dtrain, dtest = synth_jester()
+
+    def dense(**kw):
+        return lambda: BPMF(Config(num_latent=K, burnin=2, nsims=s_done,
+                                   matmul_dtype="bfloat16", **kw),
+                            dtrain, dtest, out=devnull, device="cuda")
+    for chain, knob, routes, operand in (
+            ("jester k32", {}, "fused", "inkernel"),
+            ("jester k32 hoisted", {"BPMF_D8_PT": "hoisted"}, "fused_hoisted", "tight"),
+            ("jester k32 aligned", {"BPMF_D8_SOLVE": "fused_aligned"}, "fused_aligned",
+             "aligned")):
+        with env(**knob):
+            sampler, mets, line = bf16_chain(
+                dense(), s_chunks, s_iters, {"movs": routes, "users": routes},
+                launches(**{f"fused_{operand}_bf16": 2 * s_done}), chain=chain,
+                knob=knob)
+            want = chosen(sampler, operand)
+            assert d8.sweep_mma_key(K, operand) in want, want   # the jokes
+            assert line["instances"] == want, (line, want)
+            err = check_first_iterations(dense(), mets[0], counts)
+        emit({**line, "first_3_vs_plain_max_abs_err": err, "tolerance": CHAIN_TOL})
+        del sampler
+    del dtrain, dtest
     emit({"phase": "bf16", "phase_s": time.perf_counter() - t26, **tag})
 
     # 27. the functional model API's chain against BPMF's bucketed chain,
@@ -3585,15 +3729,29 @@ def main():
             "dense8_sweep_solve.cu",
             "bpmf_tpu/ops/dense8.py:" + ("580" if name == "inkernel" else "509"),
             inst, {**result[(name, k)], "k": k, "instance": inst}))
-    # the bf16 instances' rows, each beside its float32 row
-    bf16_entries = [
-        entry(f"dense8_sweep_solve ({what}, bf16 operands)",
-              "dense8_sweep_solve_bf16.cu", "bpmf_tpu/ops/dense8.py:" + line,
-              key, {**bf16_rows[name], "k": K, "operands": "bfloat16"})
-        for name, what, line, key in (
-            ("inkernel", "in-kernel products", "580", "fused_inkernel_bf16"),
-            ("tight", "hoisted operand, tight", "509", "fused_tight_bf16"),
-            ("aligned", "hoisted operand, aligned", "509", "fused_aligned_bf16"))]
+    # the megakernel's rows on bf16 operands, each beside its float32 row:
+    # the tensor-core kernel and the walk, each by its instance's launches
+    # on the chains of phase 26 (sweep_bf16_kernel picks one by density)
+    for name, numbers in mega_chain.items():   # on chains' own states
+        row = bf16_rows[(name, "mma")]
+        err = numbers.pop("max_abs_err")
+        row.update(numbers)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    bf16_entries = []
+    for name, what, line in (("inkernel", "in-kernel products", "580"),
+                             ("tight", "hoisted operand, tight", "509"),
+                             ("aligned", "hoisted operand, aligned", "509")):
+        for kern, how, source in (
+                ("mma", "tensor cores", "dense8_sweep_solve_mma.cu"),
+                ("walk", "rated entries", "dense8_sweep_solve_bf16.cu")):
+            key = (d8.sweep_mma_key(K, name) if kern == "mma"
+                   else d8.sweep_instance_key(K, name, bf))
+            assert total.get(key), (key, "not launched on the main path")
+            bf16_entries.append(entry(
+                f"dense8_sweep_solve ({what}, bf16 operands, {how})", source,
+                "bpmf_tpu/ops/dense8.py:" + line, key,
+                {**bf16_rows[(name, kern)], "k": K, "operands": "bfloat16",
+                 "instance": key}))
     bf16_entries += [
         entry(f"dense8_gram_mma ({what}, bf16 operands, tensor cores)", "dense8_gram_mma.cu",
               "bpmf_tpu/ops/dense8.py:" + line, name + "_bf16",

@@ -1240,3 +1240,146 @@ def test_probe_main_runs_on_card(cuda, capsys):
     assert len(lines) == 4 and all("M edges/s" in l for l in lines), lines
     assert {k: gp.launches[k] - before[k] for k in before} == dict.fromkeys(
         "ABC", 4 * gp.N_STEPS)
+
+
+def _sweep_mma(codes, p_t, v_b, rest, cs, cb, orientation, layout, calls=3):
+    """``calls`` launches of the tensor-core megakernel (#1/#2 on bf16
+    operands) on one input, forced by the most walk work there can be
+    (the cost models' choice there): the first result, every launch bitwise
+    equal to it and counted under its instance (``sweep_mma_key``) and the
+    bf16 operand's key, nowhere else."""
+    k = v_b.shape[0]
+    operand = "inkernel" if p_t is None else layout
+    key = d8.sweep_mma_key(k, operand)
+    before = (dict(d8.sweep_launches), dict(d8.sweep_instance_launches))
+    got = [dense8_sweep_solve(codes, p_t, v_b, *rest, cs, cb, ALPHA, orientation,
+                              layout=layout, walk_work=codes.numel())
+           for _ in range(calls)]
+    torch.cuda.synchronize()
+    n = {key_: c - before[0][key_] for key_, c in d8.sweep_launches.items()
+         if c != before[0][key_]}
+    assert n == {operand + "_bf16": calls}, n
+    assert d8.sweep_instance_launches[key] == before[1].get(key, 0) + calls
+    for again in got[1:]:
+        assert torch.equal(got[0], again)
+    return got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codes_kind", ["random", "skewed", "zero"])
+@pytest.mark.parametrize("k", [8, 16, 24, 32])
+@pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+def test_sweep_mma_matches_plain_on_card(cuda, codes_kind, k, code_dtype, orientation):
+    """#1 on bf16 operands through the tensor-core megakernel
+    (``csrc/dense8_sweep_solve_mma.cu``) at every capacity, int8 and int16
+    codes, both orientations, on random codes at 5%, skewed ones (an item
+    with every frozen entry rated) and all-zero ones, against its plain
+    version at 1e-3 (exact products, f32 sums in another order, then the
+    Cholesky); three launches bitwise equal."""
+    cs = 0.7 if code_dtype == "int8" else 0.7 / 64
+    if codes_kind == "skewed":
+        arrays = _skewed_inputs(1024, 1536, k, orientation, seed=k + 21,
+                                code_dtype=code_dtype)
+    else:
+        arrays = _inputs(1024, 1536, k, orientation, seed=k + 23, density=0.05,
+                         code_dtype=code_dtype)
+    codes, v_t, *rest = (torch.from_numpy(a).to(cuda) for a in arrays)
+    if codes_kind == "zero":
+        codes = torch.zeros_like(codes)
+    v_b = (0.4 * v_t).bfloat16()
+    got = _sweep_mma(codes, None, v_b, rest, cs, -1.3, orientation, "aligned")
+    want = dense8_sweep_solve_ref(codes, None, v_b, *rest, cs, -1.3, ALPHA, orientation)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 16, 24, 32])
+@pytest.mark.parametrize("layout", ["tight", "aligned"])
+@pytest.mark.parametrize("code_dtype", ["int8", "int16"])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+def test_sweep_mma_hoisted_on_card(cuda, k, layout, code_dtype, orientation):
+    """#2 on a bf16 operand through the tensor-core megakernel, in both
+    layouts (K 16/32 and a runtime K on the capacities 16 and 24), with
+    NaN in every row of the operand that holds no entry of the triangle
+    (the aligned layout's padding, the tight one's tail): the kernel
+    multiplies whole rows and drops those sums; against the plain version
+    at 1e-3, three launches bitwise equal."""
+    cs = 0.7 if code_dtype == "int8" else 0.7 / 64
+    codes, v_t, *rest = (torch.from_numpy(a).to(cuda) for a in _inputs(
+        1024, 1536, k, orientation, seed=k + 25, density=0.05, code_dtype=code_dtype))
+    v_b = (0.4 * v_t).bfloat16()
+    p_t = d8.packed_tri_t(v_b.float(), aligned=layout == "aligned").bfloat16()
+    valid = torch.zeros(p_t.shape[0], dtype=torch.bool, device=cuda)
+    valid[torch.as_tensor(d8._layout_rows(k, layout)[0], device=cuda)] = True
+    p_t[~valid] = float("nan")
+    got = _sweep_mma(codes, p_t, v_b, rest, cs, -1.3, orientation, layout)
+    want = dense8_sweep_solve_ref(codes, p_t, v_b, *rest, cs, -1.3, ALPHA,
+                                  orientation, layout)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["inkernel", "tight", "aligned"])
+@pytest.mark.parametrize("orientation", ["rows", "cols"])
+def test_sweep_mma_segments_on_card(cuda, operand, orientation, monkeypatch):
+    """512 items over 32,768 frozen entries at K=32 (chembl's proteins cut
+    down): the plan's S > 1 segments and a forced S = 1, each against the
+    plain version at 1e-3 and the two within 1e-3; three launches of each
+    bitwise equal (the counters reset, the partials summed in order)."""
+    k = 32
+    shape = (512, 32768) if orientation == "rows" else (32768, 512)
+    codes, v_t, *rest = (torch.from_numpy(a).to(cuda) for a in
+                         _inputs(*shape, k, orientation, seed=29, density=0.03))
+    v_b = (0.2 * v_t).bfloat16()   # keeps sums of ~1000 products near 1
+    layout = "aligned" if operand == "inkernel" else operand
+    p_t = (None if operand == "inkernel" else
+           d8.packed_tri_t(v_b.float(), aligned=operand == "aligned").bfloat16())
+    t_in = None if p_t is None else p_t.shape[0]
+    real = d8.sweep_mma_plan
+    assert real(512, 32768, k, t_in).segments > 1
+    want = dense8_sweep_solve_ref(codes, p_t, v_b, *rest, 0.7, -1.3, ALPHA,
+                                  orientation, layout)
+    split = _sweep_mma(codes, p_t, v_b, rest, 0.7, -1.3, orientation, layout)
+    monkeypatch.setattr(d8, "sweep_mma_plan", lambda items, frozen, kp, t, *a, **kw: real(
+        items, frozen, kp, t, *a, **kw)._replace(
+        segments=1, chunks_per_segment=frozen // d8.MMA_CHUNK,
+        scratch_shape=(1, items, kp * (kp + 1) // 2 + kp)))
+    one = _sweep_mma(codes, p_t, v_b, rest, 0.7, -1.3, orientation, layout)
+    for got in (split, one):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(split, one, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["inkernel", "tight", "aligned"])
+def test_sweep_bf16_choice_on_card(cuda, operand):
+    """With the walk's work given, a launch below the work where the cost
+    models cross runs the walk's bf16 instance and one at it the
+    tensor-core kernel (each counted under its instance); the two agree at
+    1e-3."""
+    k = 32
+    codes, v_t, *rest = (torch.from_numpy(a).to(cuda) for a in
+                         _inputs(1024, 1536, k, "rows", seed=31, density=0.05))
+    v_b = (0.4 * v_t).bfloat16()
+    layout = "aligned" if operand == "inkernel" else operand
+    p_t = (None if operand == "inkernel" else
+           d8.packed_tri_t(v_b.float(), aligned=operand == "aligned").bfloat16())
+    items, frozen = codes.shape
+    t_in = None if p_t is None else p_t.shape[0]
+    mma_us = d8.sweep_mma_plan(items, frozen, k, t_in, d8._sm_count(codes.device)).us
+    edge = int(np.floor((mma_us - d8.sweep_walk_us(items, frozen, 0, k, operand, t_in))
+                        / d8.WALK_RATING_US[operand][k])) + 1
+    assert 0 < edge <= codes.numel()
+    out = {}
+    for work, key in ((edge - 1, d8.sweep_instance_key(k, operand, torch.bfloat16)),
+                      (edge, d8.sweep_mma_key(k, operand))):
+        before = d8.sweep_instance_launches.get(key, 0)
+        out[key] = dense8_sweep_solve(codes, p_t, v_b, *rest, 0.7, -1.3, ALPHA, "rows",
+                                      layout=layout, walk_work=work)
+        torch.cuda.synchronize()
+        assert d8.sweep_instance_launches[key] == before + 1
+    walk, mma = out.values()
+    torch.testing.assert_close(walk, mma, rtol=1e-3, atol=1e-3)
