@@ -1,0 +1,6 @@
+"""eval_ms_per_iter: device milliseconds of the operations launched in the
+evaluation's spans (BPMF._predict), per iteration of the traced window."""
+
+
+def read(ctx):
+    return ctx.layer_ms_per_iter("evaluation")
