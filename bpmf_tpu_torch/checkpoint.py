@@ -26,6 +26,7 @@ import zlib
 import numpy as np
 
 from bpmf_tpu_torch.convert import state_from_numpy, state_to_numpy
+from bpmf_tpu_torch.utils.counters import count_sync
 
 __all__ = ["FORMAT_VERSION", "dataset_hash", "seed_key", "seed_from_key",
            "save", "load"]
@@ -59,10 +60,12 @@ def seed_from_key(key) -> int:
 def save(path: str, sampler) -> None:
     """Write the sampler's full state to ``path`` (.npz; numpy appends the
     suffix when it is missing).  At D > 1 every rank takes part in the
-    gather of the shards and rank 0 writes."""
+    gather of the shards and rank 0 writes (a host sync, site
+    ``checkpoint``)."""
     state_m, state_u, est = sampler.state_host()
     if sampler.rank != 0:
         return
+    count_sync("checkpoint")
     payload = {
         "format_version": FORMAT_VERSION,
         "iter": sampler.iter,

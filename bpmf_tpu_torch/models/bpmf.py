@@ -27,6 +27,7 @@ from bpmf_tpu_torch.ops.update import (
     gram_rhs,
     posterior_precision_rhs,
 )
+from bpmf_tpu_torch.utils.counters import span
 
 __all__ = [
     "SideState",
@@ -203,6 +204,7 @@ def sweep_core(
     *,
     burnin: int,
     solver: str = "xla",
+    solve_span: str = "bpmf.solve",
     **systems,
 ):
     """Resample the items covered by ``buckets`` and return (items, sum,
@@ -212,24 +214,29 @@ def sweep_core(
     holds the rows of the concatenated slots.  Padding slots scatter to
     the side's scratch row (a padding row of ``items``); they have no
     ratings, so their draw is finite, and ``slot_valid`` keeps them out of
-    the stats and aggregates."""
-    precision, rhs, item_ids, slot_valid = bucket_systems(
-        buckets, other_items, hp, **systems)
-    u = get_solver(solver)(precision, rhs, noise)
-    del precision
+    the stats and aggregates.  Spans (``utils.counters.span``):
+    ``solve_span`` up to the scattered items, then ``bpmf.stats``."""
+    with span(solve_span):
+        precision, rhs, item_ids, slot_valid = bucket_systems(
+            buckets, other_items, hp, **systems)
+        u = get_solver(solver)(precision, rhs, noise)
+        del precision
+        # every padding slot writes the same draw (no ratings, the noise row
+        # of id num) to the scratch row, so the duplicate indices are
+        # harmless
+        items = items.index_copy(0, item_ids, u)
 
-    uv = u * slot_valid[:, None]
-    # every padding slot writes the same draw (no ratings, the noise row of
-    # id num) to the scratch row, so the duplicate indices are harmless
-    items = items.index_copy(0, item_ids, u)
-    s = uv.sum(0)
-    prod = uv.t() @ u
-    norm = (uv * u).sum()
-    if aggr_mu is not None and it >= burnin:
-        # aggrMu/aggrLambda post-burnin (c++/sample.cpp:364-368); padding
-        # slots add zeros
-        aggr_mu = aggr_mu.index_add(0, item_ids, uv)
-        aggr_prod = aggr_prod.index_add(0, item_ids, aggr_prod_update(uv, u))
+    with span("bpmf.stats"):
+        uv = u * slot_valid[:, None]
+        s = uv.sum(0)
+        prod = uv.t() @ u
+        norm = (uv * u).sum()
+        if aggr_mu is not None and it >= burnin:
+            # aggrMu/aggrLambda post-burnin (c++/sample.cpp:364-368); padding
+            # slots add zeros
+            aggr_mu = aggr_mu.index_add(0, item_ids, uv)
+            aggr_prod = aggr_prod.index_add(0, item_ids,
+                                            aggr_prod_update(uv, u))
     return items, s, prod, norm, aggr_mu, aggr_prod
 
 

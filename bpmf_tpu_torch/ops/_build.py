@@ -17,7 +17,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+
+from bpmf_tpu_torch.utils.counters import count_build
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -41,7 +44,9 @@ def _nvcc() -> str:
 
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` into a shared library unless an up-to-date
-    build exists.  Returns (library path, ptxas report; empty when cached)."""
+    build exists (a compile is counted, with its seconds, in
+    ``utils.counters.event_counts``).  Returns (library path, ptxas report;
+    empty when cached)."""
     srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     digest = hashlib.sha256()
     for s in srcs:
@@ -57,7 +62,9 @@ def build(name: str) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    count_build(time.perf_counter() - t0)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(

@@ -87,6 +87,7 @@ from bpmf_tpu_torch.ops.update import (
     posterior_precision_rhs,
 )
 from bpmf_tpu_torch.parallel.mesh import Mesh
+from bpmf_tpu_torch.utils.counters import span
 
 __all__ = [
     "dense8_half_sweep",
@@ -143,6 +144,7 @@ def dense8_half_sweep(
     walk_work: Optional[int] = None,  # the walk's work (ops.dense8.walk_work)
     matmul_dtype=None,          # the kernels' operand dtype (torch.bfloat16:
                                 # bf16 matmul inputs); None: the frozen side's
+    solve_span: str = "bpmf.solve",  # the span of the solve (utils.counters)
 ) -> SideState:
     """Resample every item of one side from the int8 code array
     (``bpmf_tpu.parallel.spmd.dense8_half_sweep``, single device), then the
@@ -164,47 +166,48 @@ def dense8_half_sweep(
     ``matmul_dtype`` the kernels take the frozen side rounded to bf16 and
     the packed products of the rounded side, rounded
     (``bpmf_tpu/parallel/spmd.py:834-866``)."""
-    ablates = ablate.split(",")
-    dtype = other_items.dtype
-    v_t = other_items.t()
-    if matmul_dtype is not None:
-        v_t = v_t.to(matmul_dtype)
-    if route in FUSED_ROUTES:
-        if prior_tri_t is not None:
-            raise ValueError("a per-item prior needs the split route")
-        if "nomatmul" in ablates or "nosolve" in ablates:
-            raise ValueError("the nomatmul/nosolve ablations need the split route")
-        layout = SWEEP_LAYOUT.get(route, "tight")
-        p_t = (packed_tri_t(v_t.to(dtype), aligned=layout == "aligned").to(v_t.dtype)
-               if route != "fused" else None)
-        prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
-        u = dense8_sweep_solve(codes, p_t, v_t, hp.lambda_f, prior_rhs,
-                               noise.t(), cs, cb, alpha, orientation,
-                               layout=layout, max_degree=max_degree,
-                               walk_work=walk_work).t()
-    elif route in ("inkernel", "hoisted"):
-        n_items = noise.shape[0]
-        if "nomatmul" in ablates:
-            # a constant Gram that still depends on the frozen side
-            gram_t = noise.new_zeros((tight_rows(v_t.shape[0]), n_items)) \
-                + v_t[0, 0].to(dtype) * 1e-12
-            rhs_t = noise.new_zeros((v_t.shape[0], n_items))
+    with span(solve_span):
+        ablates = ablate.split(",")
+        dtype = other_items.dtype
+        v_t = other_items.t()
+        if matmul_dtype is not None:
+            v_t = v_t.to(matmul_dtype)
+        if route in FUSED_ROUTES:
+            if prior_tri_t is not None:
+                raise ValueError("a per-item prior needs the split route")
+            if "nomatmul" in ablates or "nosolve" in ablates:
+                raise ValueError("the nomatmul/nosolve ablations need the split route")
+            layout = SWEEP_LAYOUT.get(route, "tight")
+            p_t = (packed_tri_t(v_t.to(dtype), aligned=layout == "aligned").to(v_t.dtype)
+                   if route != "fused" else None)
+            prior_rhs = (hp.lambda_f @ hp.mu)[:, None]
+            u = dense8_sweep_solve(codes, p_t, v_t, hp.lambda_f, prior_rhs,
+                                   noise.t(), cs, cb, alpha, orientation,
+                                   layout=layout, max_degree=max_degree,
+                                   walk_work=walk_work).t()
+        elif route in ("inkernel", "hoisted"):
+            n_items = noise.shape[0]
+            if "nomatmul" in ablates:
+                # a constant Gram that still depends on the frozen side
+                gram_t = noise.new_zeros((tight_rows(v_t.shape[0]), n_items)) \
+                    + v_t[0, 0].to(dtype) * 1e-12
+                rhs_t = noise.new_zeros((v_t.shape[0], n_items))
+            else:
+                p_t = (packed_tri_t(v_t.to(dtype)).to(v_t.dtype) if route == "hoisted"
+                       else None)
+                gram_rhs = (dense8_gram_rhs_rows if orientation == "rows"
+                            else dense8_gram_rhs_cols)
+                gram_t, rhs_t = gram_rhs(codes, p_t, v_t, cs, cb,
+                                         max_degree=max_degree)
+            rhs_t = _combine_prior_rhs(rhs_t, hp, prior_tri_t, prior_rhs_t, grouped)
+            if "nosolve" in ablates:
+                u = (rhs_t + noise.t() + _aligned_head(gram_t, v_t.shape[0])).t()
+            else:
+                u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(),
+                                             alpha, lam_tri_t=prior_tri_t,
+                                             grouped=grouped).t()
         else:
-            p_t = (packed_tri_t(v_t.to(dtype)).to(v_t.dtype) if route == "hoisted"
-                   else None)
-            gram_rhs = (dense8_gram_rhs_rows if orientation == "rows"
-                        else dense8_gram_rhs_cols)
-            gram_t, rhs_t = gram_rhs(codes, p_t, v_t, cs, cb,
-                                     max_degree=max_degree)
-        rhs_t = _combine_prior_rhs(rhs_t, hp, prior_tri_t, prior_rhs_t, grouped)
-        if "nosolve" in ablates:
-            u = (rhs_t + noise.t() + _aligned_head(gram_t, v_t.shape[0])).t()
-        else:
-            u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(),
-                                         alpha, lam_tri_t=prior_tri_t,
-                                         grouped=grouped).t()
-    else:
-        raise ValueError(f"unknown dense8 route {route!r}")
+            raise ValueError(f"unknown dense8 route {route!r}")
 
     return _finish(state, u, local_valid, hp, num, it, burnin)
 
@@ -233,6 +236,7 @@ def dense8_half_sweep_sharded(
     max_degree: Optional[int] = None,  # the most ratings an item has within
                                        # this rank's codes
     matmul_dtype=None,          # as dense8_half_sweep's
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """The int8 dense-stream half-sweep over ranks (``bpmf_tpu.parallel.
     spmd.dense8_half_sweep_sharded``): the code array is sharded by user
@@ -260,32 +264,33 @@ def dense8_half_sweep_sharded(
     if route not in ("inkernel", "hoisted"):
         raise ValueError(f"the sharded dense8 sweep runs the split pipeline, "
                          f"not route {route!r}")
-    md = matmul_dtype or other_items.dtype
+    with span(solve_span):
+        md = matmul_dtype or other_items.dtype
 
-    def operands(v32):
-        p_t = packed_tri_t(v32).to(md) if route == "hoisted" else None
-        return p_t, v32.to(md)
+        def operands(v32):
+            p_t = packed_tri_t(v32).to(md) if route == "hoisted" else None
+            return p_t, v32.to(md)
 
-    if orientation == "rows":
-        p_t, v_t = operands(mesh.all_gather(other_items).t())   # [K, C]
-        gram_t, rhs_t = dense8_gram_rhs_rows(codes, p_t, v_t, cs, cb,
-                                             max_degree=max_degree)
-    elif orientation == "cols":
-        p_t, v_t = operands(other_items.t())                    # [K, R/D]
-        gram_t, rhs_t = dense8_gram_rhs_cols(codes, p_t, v_t, cs, cb,
-                                             max_degree=max_degree)
-        t_rows, k, cols = gram_t.shape[0], rhs_t.shape[0], gram_t.shape[1]
-        lp = cols // mesh.size
-        both = torch.cat([gram_t, rhs_t])                    # [T+K, C] partial
-        both = mesh.reduce_scatter(
-            both.reshape(t_rows + k, mesh.size, lp).transpose(0, 1)
-            .reshape(mesh.size * (t_rows + k), lp))          # [T+K, C/D]
-        gram_t, rhs_t = both[:t_rows], both[t_rows:]
-    else:
-        raise ValueError(f"bad orientation {orientation!r}")
-    rhs_t = _combine_prior_rhs(rhs_t, hp, prior_tri_t, prior_rhs_t, grouped)
-    u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(), alpha,
-                                 lam_tri_t=prior_tri_t, grouped=grouped).t()
+        if orientation == "rows":
+            p_t, v_t = operands(mesh.all_gather(other_items).t())   # [K, C]
+            gram_t, rhs_t = dense8_gram_rhs_rows(codes, p_t, v_t, cs, cb,
+                                                 max_degree=max_degree)
+        elif orientation == "cols":
+            p_t, v_t = operands(other_items.t())                    # [K, R/D]
+            gram_t, rhs_t = dense8_gram_rhs_cols(codes, p_t, v_t, cs, cb,
+                                                 max_degree=max_degree)
+            t_rows, k, cols = gram_t.shape[0], rhs_t.shape[0], gram_t.shape[1]
+            lp = cols // mesh.size
+            both = torch.cat([gram_t, rhs_t])                    # [T+K, C] partial
+            both = mesh.reduce_scatter(
+                both.reshape(t_rows + k, mesh.size, lp).transpose(0, 1)
+                .reshape(mesh.size * (t_rows + k), lp))          # [T+K, C/D]
+            gram_t, rhs_t = both[:t_rows], both[t_rows:]
+        else:
+            raise ValueError(f"bad orientation {orientation!r}")
+        rhs_t = _combine_prior_rhs(rhs_t, hp, prior_tri_t, prior_rhs_t, grouped)
+        u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(), alpha,
+                                     lam_tri_t=prior_tri_t, grouped=grouped).t()
     return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
@@ -320,14 +325,16 @@ def _finish(state: SideState, u, local_valid, hp, num, it, burnin,
     """The side's new state from its new items [local items, K]: sum, prod,
     norm over the real items (over every rank's items with a mesh), the
     covariance, and after burn-in the posterior aggregates (``spmd.py``
-    after each shard_map body)."""
-    uv = u * local_valid[:, None]
-    s, prod, norm = exchange_stats(mesh, uv.sum(0), uv.t() @ u, (uv * u).sum())
-    aggr_mu, aggr_prod = state.aggr_mu, state.aggr_prod
-    if aggr_mu is not None and it >= burnin:
-        aggr_mu = aggr_mu + uv
-        aggr_prod = aggr_prod + aggr_prod_update(uv, u)
-    return _with_stats(u, hp, s, prod, norm, num, aggr_mu, aggr_prod)
+    after each shard_map body); span ``bpmf.stats``."""
+    with span("bpmf.stats"):
+        uv = u * local_valid[:, None]
+        s, prod, norm = exchange_stats(mesh, uv.sum(0), uv.t() @ u,
+                                       (uv * u).sum())
+        aggr_mu, aggr_prod = state.aggr_mu, state.aggr_prod
+        if aggr_mu is not None and it >= burnin:
+            aggr_mu = aggr_mu + uv
+            aggr_prod = aggr_prod + aggr_prod_update(uv, u)
+        return _with_stats(u, hp, s, prod, norm, num, aggr_mu, aggr_prod)
 
 
 def _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod) -> SideState:
@@ -359,6 +366,7 @@ def gather_half_sweep(
     mesh: Optional[Mesh] = None,
     halo: Optional[tuple] = None,  # (send_rows, recv_pos): this rank's row
                                    # of each ring round (HaloLayout)
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """Value-exchange half-sweep over the degree buckets
     (``bpmf_tpu.parallel.spmd.gather_half_sweep``): with a mesh, the
@@ -366,33 +374,40 @@ def gather_half_sweep(
     :func:`halo_gather`, which moves only the referenced rows (the same
     values on every row a bucket reads); then the per-bucket Gram, one
     combine and solve (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`), the
-    scatter, and the stats summed over ranks."""
+    scatter, and the stats summed over ranks.  The exchange is in the
+    solve's span (a span of its own before the one :func:`sweep_buckets`
+    opens)."""
     if mesh is not None:
-        other_items = (halo_gather(mesh, other_items, *halo)
-                       if halo is not None else mesh.all_gather(other_items))
+        with span(solve_span):
+            other_items = (halo_gather(mesh, other_items, *halo)
+                           if halo is not None
+                           else mesh.all_gather(other_items))
     return sweep_buckets(
         state, buckets, other_items, hp, noise, it, num=num,
         mean_rating=mean_rating, alpha=alpha, burnin=burnin, splits=splits,
         diagonal_only=diagonal_only, strict_reference=strict_reference,
         solver=solver, prop_mu=prop_mu, prop_lambda=prop_lambda,
-        ablate=ablate, mesh=mesh)
+        ablate=ablate, mesh=mesh, solve_span=solve_span)
 
 
 def sweep_buckets(state: SideState, buckets: Sequence[BucketDev],
                   other_items: torch.Tensor, hp: HyperParams,
                   noise: torch.Tensor, it: int, *, num: int, burnin: int,
-                  mesh: Optional[Mesh] = None, **systems) -> SideState:
+                  mesh: Optional[Mesh] = None, solve_span: str = "bpmf.solve",
+                  **systems) -> SideState:
     """The body of :func:`gather_half_sweep` once the frozen side is whole
     on this rank: the per-bucket Gram, one combine and solve
     (:func:`~bpmf_tpu_torch.models.bpmf.sweep_core`, ``systems`` its
     keyword arguments), the scatter, the stats summed over the ranks of
     ``mesh``, and the covariance with the global ``num``.  Also the body of
-    :func:`~bpmf_tpu_torch.models.bpmf.half_sweep`."""
+    :func:`~bpmf_tpu_torch.models.bpmf.half_sweep`.  Spans: ``solve_span``
+    and ``bpmf.stats`` (opened by ``sweep_core``)."""
     items, s, prod, norm, aggr_mu, aggr_prod = sweep_core(
         state.items, state.aggr_mu, state.aggr_prod, buckets, other_items,
-        hp, noise, it, burnin=burnin, **systems)
-    s, prod, norm = exchange_stats(mesh, s, prod, norm)
-    return _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod)
+        hp, noise, it, burnin=burnin, solve_span=solve_span, **systems)
+    with span("bpmf.stats"):
+        s, prod, norm = exchange_stats(mesh, s, prod, norm)
+        return _with_stats(items, hp, s, prod, norm, num, aggr_mu, aggr_prod)
 
 
 def halo_gather(mesh: Mesh, other_l: torch.Tensor, send_rows: Sequence,
@@ -416,12 +431,11 @@ def halo_gather(mesh: Mesh, other_l: torch.Tensor, send_rows: Sequence,
     return buf[:n_global]
 
 
-def _reduce_solve(state, packed, hp, noise, it, *, num, local_valid, alpha,
-                  burnin, diagonal_only, strict_reference, solver, prop_mu,
-                  prop_lambda, mesh):
-    """The tail of both reduce sweeps: the owner's summed [lp, K*K + K]
-    Gram and rhs, the prior combine per local slot, the side's solver, the
-    stats."""
+def _reduce_draw(packed, hp, noise, *, alpha, diagonal_only, strict_reference,
+                 solver, prop_mu, prop_lambda):
+    """The solve of both reduce sweeps: the owner's summed [lp, K*K + K]
+    Gram and rhs, the prior combine per local slot, the side's solver;
+    returns the drawn items."""
     k = noise.shape[-1]
     lp = packed.shape[0]
     precision, rhs = posterior_precision_rhs(
@@ -430,8 +444,7 @@ def _reduce_solve(state, packed, hp, noise, it, *, num, local_valid, alpha,
         prop_lambda=prop_lambda, diagonal_only=diagonal_only,
         strict_reference=strict_reference)
     del packed
-    u = get_solver(solver)(precision, rhs, noise)
-    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
+    return get_solver(solver)(precision, rhs, noise)
 
 
 def _partials(buckets, splits, other_l, mean_rating, alpha, ablate, rows,
@@ -473,6 +486,7 @@ def reduce_half_sweep(
     prop_lambda: Optional[torch.Tensor] = None,  # [lp, K, K]
     ablate: str = "",
     mesh: Optional[Mesh] = None,
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """Statistic-exchange half-sweep over the degree buckets (``bpmf_tpu.
     parallel.spmd.reduce_half_sweep``; ENABLE_REDUCE): the partial Gram
@@ -483,15 +497,16 @@ def reduce_half_sweep(
     ``psum_scatter``, packed into one).  Then the prior combine over the
     rank's slots, the side's solver (#8 under smart/pallas) and the stats
     summed over ranks."""
-    packed = _partials(buckets, splits, other_items, mean_rating, alpha,
-                       ablate, padded_num, state.items.dtype)
-    if mesh is not None:
-        packed = mesh.reduce_scatter(packed)
-    return _reduce_solve(
-        state, packed, hp, noise, it, num=num, local_valid=local_valid,
-        alpha=alpha, burnin=burnin, diagonal_only=diagonal_only,
-        strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
-        prop_lambda=prop_lambda, mesh=mesh)
+    with span(solve_span):
+        packed = _partials(buckets, splits, other_items, mean_rating, alpha,
+                           ablate, padded_num, state.items.dtype)
+        if mesh is not None:
+            packed = mesh.reduce_scatter(packed)
+        u = _reduce_draw(packed, hp, noise, alpha=alpha,
+                         diagonal_only=diagonal_only,
+                         strict_reference=strict_reference, solver=solver,
+                         prop_mu=prop_mu, prop_lambda=prop_lambda)
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
 def reduce_half_sweep_chunked(
@@ -515,6 +530,7 @@ def reduce_half_sweep_chunked(
     prop_lambda: Optional[torch.Tensor] = None,  # [lp, K, K]
     ablate: str = "",
     mesh: Optional[Mesh] = None,
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """:func:`reduce_half_sweep` in O(lp * K^2) memory a rank (``bpmf_tpu.
     parallel.spmd.reduce_half_sweep_chunked``; the reference reduces one
@@ -527,19 +543,20 @@ def reduce_half_sweep_chunked(
     lp = local_valid.shape[0]
     rank = 0 if mesh is None else mesh.rank
     mine = None
-    for dest, (buckets, splits) in enumerate(per_dest):
-        part = _partials(buckets, splits, other_items, mean_rating, alpha,
-                         ablate, lp, state.items.dtype)
-        if mesh is not None:
-            part = mesh.all_reduce(part)
-        if dest == rank:
-            mine = part
-        del part
-    return _reduce_solve(
-        state, mine, hp, noise, it, num=num, local_valid=local_valid,
-        alpha=alpha, burnin=burnin, diagonal_only=diagonal_only,
-        strict_reference=strict_reference, solver=solver, prop_mu=prop_mu,
-        prop_lambda=prop_lambda, mesh=mesh)
+    with span(solve_span):
+        for dest, (buckets, splits) in enumerate(per_dest):
+            part = _partials(buckets, splits, other_items, mean_rating, alpha,
+                             ablate, lp, state.items.dtype)
+            if mesh is not None:
+                part = mesh.all_reduce(part)
+            if dest == rank:
+                mine = part
+            del part
+        u = _reduce_draw(mine, hp, noise, alpha=alpha,
+                         diagonal_only=diagonal_only,
+                         strict_reference=strict_reference, solver=solver,
+                         prop_mu=prop_mu, prop_lambda=prop_lambda)
+    return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
 def dense_half_sweep(
@@ -562,6 +579,7 @@ def dense_half_sweep(
     prop_lambda: Optional[torch.Tensor] = None,  # [local items, K, K]
     ablate: str = "",                            # perf-debug (Config.ablate)
     mesh: Optional[Mesh] = None,
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """Dense-adjacency half-sweep (``bpmf_tpu.parallel.spmd.
     dense_half_sweep``): with a mesh, the all_gather of the frozen side;
@@ -571,32 +589,33 @@ def dense_half_sweep(
     the stats.  Every item of the shard is recomputed in place.  bf16 blocks
     (bf16 matmul inputs) take the outer products of the float32 side and
     the side itself rounded to bf16 (``bpmf_tpu/parallel/spmd.py:349-356``)."""
-    ablates = ablate.split(",")
-    if mesh is not None:
-        other_items = mesh.all_gather(other_items)
-    dtype, md = other_items.dtype, a_ind.dtype
-    k = other_items.shape[-1]
-    n = other_items.shape[0]
-    items = a_val.shape[0]
-    if "nomatmul" in ablates:
-        eye = torch.eye(k, dtype=other_items.dtype, device=other_items.device)
-        gram = other_items.new_zeros((items, k, k)) \
-            + eye * (1.0 + other_items[0, 0] * 1e-12)
-        rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
-    else:
-        p = (other_items[:, :, None] * other_items[:, None, :]).reshape(n, k * k)
-        gram = matmul_acc(a_ind, p.to(md), dtype).reshape(-1, k, k)
-        del p
-        rhs = matmul_acc(a_val, other_items.to(md), dtype)
-    precision, full_rhs = posterior_precision_rhs(
-        gram, rhs, torch.arange(gram.shape[0], device=gram.device), hp, alpha,
-        prop_mu=prop_mu, prop_lambda=prop_lambda,
-        diagonal_only=diagonal_only, strict_reference=strict_reference)
-    del gram
-    if "nosolve" in ablates:
-        u = full_rhs + noise + precision[:, 0, :]
-    else:
-        u = get_solver(solver)(precision, full_rhs, noise)
+    with span(solve_span):
+        ablates = ablate.split(",")
+        if mesh is not None:
+            other_items = mesh.all_gather(other_items)
+        dtype, md = other_items.dtype, a_ind.dtype
+        k = other_items.shape[-1]
+        n = other_items.shape[0]
+        items = a_val.shape[0]
+        if "nomatmul" in ablates:
+            eye = torch.eye(k, dtype=other_items.dtype, device=other_items.device)
+            gram = other_items.new_zeros((items, k, k)) \
+                + eye * (1.0 + other_items[0, 0] * 1e-12)
+            rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
+        else:
+            p = (other_items[:, :, None] * other_items[:, None, :]).reshape(n, k * k)
+            gram = matmul_acc(a_ind, p.to(md), dtype).reshape(-1, k, k)
+            del p
+            rhs = matmul_acc(a_val, other_items.to(md), dtype)
+        precision, full_rhs = posterior_precision_rhs(
+            gram, rhs, torch.arange(gram.shape[0], device=gram.device), hp, alpha,
+            prop_mu=prop_mu, prop_lambda=prop_lambda,
+            diagonal_only=diagonal_only, strict_reference=strict_reference)
+        del gram
+        if "nosolve" in ablates:
+            u = full_rhs + noise + precision[:, 0, :]
+        else:
+            u = get_solver(solver)(precision, full_rhs, noise)
     return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 
@@ -626,6 +645,7 @@ def dense_half_sweep_fused(
     grouped: bool = False,      # the packed-triangle solve's layout pin
     ablate: str = "",           # perf-debug (Config.ablate)
     mesh: Optional[Mesh] = None,
+    solve_span: str = "bpmf.solve",
 ) -> SideState:
     """Dense half-sweep with the packed-triangle solve (``bpmf_tpu.
     parallel.spmd.dense_half_sweep_fused``), after the all_gather of the
@@ -639,27 +659,28 @@ def dense_half_sweep_fused(
     so, like ``BPMF_D8_FOLD``, they have no counterpart here.  bf16 blocks
     take the packed products of the float32 side and the side itself
     rounded to bf16 (``bpmf_tpu/parallel/spmd.py:527-536``)."""
-    ablates = ablate.split(",")
-    if mesh is not None:
-        other_items = mesh.all_gather(other_items)
-    dtype, md = other_items.dtype, a_ind_t.dtype
-    v_t = other_items.t()
-    k, items = v_t.shape[0], a_val.shape[0]
-    if "nomatmul" in ablates:
-        gram_t = v_t.new_zeros((tight_rows(k), items)) + v_t[0, 0] * 1e-12
-        rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
-    else:
-        ii, jj = _tight_pair_index(k, v_t.device)
-        gram_t = matmul_acc((v_t[ii] * v_t[jj]).to(md), a_ind_t,
-                            dtype)                           # [T_tight, I]
-        rhs = matmul_acc(a_val, other_items.to(md), dtype)
-    rhs_t = _combine_prior_rhs(rhs.t(), hp, prior_tri_t, prior_rhs_t, grouped)
-    if "nosolve" in ablates:
-        u = (rhs_t + noise.t() + _aligned_head(gram_t, k)).t()
-    else:
-        u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(),
-                                     alpha, lam_tri_t=prior_tri_t,
-                                     grouped=grouped).t()
+    with span(solve_span):
+        ablates = ablate.split(",")
+        if mesh is not None:
+            other_items = mesh.all_gather(other_items)
+        dtype, md = other_items.dtype, a_ind_t.dtype
+        v_t = other_items.t()
+        k, items = v_t.shape[0], a_val.shape[0]
+        if "nomatmul" in ablates:
+            gram_t = v_t.new_zeros((tight_rows(k), items)) + v_t[0, 0] * 1e-12
+            rhs = other_items.new_zeros((items, k)) + a_val[:, :1].to(dtype)
+        else:
+            ii, jj = _tight_pair_index(k, v_t.device)
+            gram_t = matmul_acc((v_t[ii] * v_t[jj]).to(md), a_ind_t,
+                                dtype)                           # [T_tight, I]
+            rhs = matmul_acc(a_val, other_items.to(md), dtype)
+        rhs_t = _combine_prior_rhs(rhs.t(), hp, prior_tri_t, prior_rhs_t, grouped)
+        if "nosolve" in ablates:
+            u = (rhs_t + noise.t() + _aligned_head(gram_t, k)).t()
+        else:
+            u = tri_combine_solve_sample(gram_t, hp.lambda_f, rhs_t, noise.t(),
+                                         alpha, lam_tri_t=prior_tri_t,
+                                         grouped=grouped).t()
     return _finish(state, u, local_valid, hp, num, it, burnin, mesh)
 
 

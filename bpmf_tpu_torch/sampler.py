@@ -88,7 +88,14 @@ from bpmf_tpu_torch.parallel.spmd import (
     reduce_half_sweep,
     reduce_half_sweep_chunked,
 )
-from bpmf_tpu_torch.utils.counters import Counters, tick
+from bpmf_tpu_torch.utils.counters import (
+    Counters,
+    count_sync,
+    event_counts,
+    setup_clock,
+    span,
+    tick,
+)
 
 __all__ = ["BPMF", "HostDraws", "Side", "TorchDraws", "rank_buckets",
            "unsupported"]
@@ -108,6 +115,13 @@ PHASE_NAMES = {
     "nohyper": "hyperprior resample",
     "nonoise": "noise tables",
 }
+# each side's name in spans and set-up parts (utils.counters), and its
+# spans: its half-sweep, its noise draw, and its solve, from the frozen
+# side's operand to the drawn items
+SIDE_LABELS = {"movs": "movies", "users": "users"}
+SIDE_SPANS = {name: tuple(f"bpmf.{kind}.{label}"
+                          for kind in ("sweep", "noise", "solve"))
+              for name, label in SIDE_LABELS.items()}
 
 
 def unsupported(cfg: Config) -> list[str]:
@@ -300,6 +314,10 @@ class BPMF:
         draws=None,
         mesh: Optional[Mesh] = None,
     ):
+        # the set-up's parts in host seconds, here and in setup()
+        # (utils.counters.event_counts reports the last sampler's)
+        clock = self._setup_clock = setup_clock()
+        self.setup_parts = clock.parts
         problems = unsupported(cfg)
         if problems:
             raise NotImplementedError("; ".join(problems))
@@ -328,32 +346,37 @@ class BPMF:
             out = open(os.devnull, "w")
         self.out = out if out is not None else sys.stdout
 
-        if train is None:
-            train = read_matrix(cfg.train_file)
-        if test is None:
-            test = read_matrix(cfg.test_file)
-        train = sp.csc_matrix(train)
-        test = sp.csc_matrix(test)
-        # conservativeResize to the common bounding shape (c++/sample.cpp:119-122)
-        rows = max(train.shape[0], test.shape[0])
-        cols = max(train.shape[1], test.shape[1])
-        train.resize((rows, cols))
-        test.resize((rows, cols))
-        self.train = train
-        self.test = test
-        self.mean_rating = train.sum() / train.nnz
+        with clock.part("inputs"):
+            if train is None:
+                train = read_matrix(cfg.train_file)
+            if test is None:
+                test = read_matrix(cfg.test_file)
+            train = sp.csc_matrix(train)
+            test = sp.csc_matrix(test)
+            # conservativeResize to the common bounding shape
+            # (c++/sample.cpp:119-122)
+            rows = max(train.shape[0], test.shape[0])
+            cols = max(train.shape[1], test.shape[1])
+            train.resize((rows, cols))
+            test.resize((rows, cols))
+            self.train = train
+            self.test = test
+            self.mean_rating = train.sum() / train.nnz
 
-        # movies: columns of R; users: rows of R (c++/bpmf.cpp:131-132)
-        self.movies = Side("movs", train, cfg, self.n_devices)
-        self.users = Side("users", sp.csc_matrix(train.T), cfg, self.n_devices)
-        self.movies.add_prop_posterior(cfg.prop_v, cfg.num_latent)
-        self.users.add_prop_posterior(cfg.prop_u, cfg.num_latent)
+        with clock.part("side_maps"):
+            # movies: columns of R; users: rows of R (c++/bpmf.cpp:131-132)
+            self.movies = Side("movs", train, cfg, self.n_devices)
+            self.users = Side("users", sp.csc_matrix(train.T), cfg,
+                              self.n_devices)
+            self.movies.add_prop_posterior(cfg.prop_v, cfg.num_latent)
+            self.users.add_prop_posterior(cfg.prop_u, cfg.num_latent)
 
-        tcoo = test.tocoo()
-        order = np.lexsort((tcoo.row, tcoo.col))  # column-major like Eigen
-        self.t_user = tcoo.row[order].astype(np.int32)
-        self.t_item = tcoo.col[order].astype(np.int32)
-        self.t_val = tcoo.data[order]
+        with clock.part("test_entries"):
+            tcoo = test.tocoo()
+            order = np.lexsort((tcoo.row, tcoo.col))  # column-major like Eigen
+            self.t_user = tcoo.row[order].astype(np.int32)
+            self.t_item = tcoo.col[order].astype(np.int32)
+            self.t_val = tcoo.data[order]
 
         self.seed = cfg.seed
         self.draws = draws if draws is not None else TorchDraws(cfg.seed, self.device)
@@ -470,91 +493,105 @@ class BPMF:
         return q
 
     def setup(self) -> None:
+        """The routes, the device data and the initial state, once; each
+        part clocked in ``setup_parts`` (host seconds; device work a part
+        enqueues without waiting is clocked where the host next waits)."""
         if self._setup_done:
             return
-        cfg = self.cfg
-        min_side = min(self.train.shape)
-        # float64 when the smaller side has fewer than 2K items
-        self.dtype = getattr(torch, cfg.resolve_dtype(min_side))
-        if cfg.dtype == "auto" and self.dtype == torch.float64:
-            self._log(
-                f"dtype auto -> float64: min side {min_side} < "
-                f"2*K={2 * cfg.num_latent} (f32's Cholesky headroom is not "
-                "enough when the Normal-Wishart df barely exceeds K; the "
-                "all-double reference never faces this)")
-        cfg.dtype = "float64" if self.dtype == torch.float64 else "float32"
-        # the TPU's solver policy: auto -> smart, float64 -> xla
-        self.solver = cfg.resolve_solver("tpu")
-        # the Gram matmuls' input dtype (bpmf_tpu/sampler.py:471-473): auto
-        # resolves off a TPU, to float32; sums stay in the compute dtype
-        self.matmul_dtype = cfg.resolve_matmul_dtype("cuda")
-        self._md = (torch.bfloat16 if self.matmul_dtype == "bfloat16"
-                    else self.dtype)
-        q = self._route()
+        clock = self._setup_clock
+        with clock.part("route"):
+            cfg = self.cfg
+            min_side = min(self.train.shape)
+            # float64 when the smaller side has fewer than 2K items
+            self.dtype = getattr(torch, cfg.resolve_dtype(min_side))
+            if cfg.dtype == "auto" and self.dtype == torch.float64:
+                self._log(
+                    f"dtype auto -> float64: min side {min_side} < "
+                    f"2*K={2 * cfg.num_latent} (f32's Cholesky headroom is not "
+                    "enough when the Normal-Wishart df barely exceeds K; the "
+                    "all-double reference never faces this)")
+            cfg.dtype = "float64" if self.dtype == torch.float64 else "float32"
+            # the TPU's solver policy: auto -> smart, float64 -> xla
+            self.solver = cfg.resolve_solver("tpu")
+            # the Gram matmuls' input dtype (bpmf_tpu/sampler.py:471-473): auto
+            # resolves off a TPU, to float32; sums stay in the compute dtype
+            self.matmul_dtype = cfg.resolve_matmul_dtype("cuda")
+            self._md = (torch.bfloat16 if self.matmul_dtype == "bfloat16"
+                        else self.dtype)
+            q = self._route()
         dev, dtype = self.device, self.dtype
 
         self._codes = None
         if "dense8" in (self.movies.impl, self.users.impl):
-            # this rank's user rows of the code array, [R/D, C] (all of it
-            # on one device): the COO is filtered by row range first, so no
-            # rank holds the whole array
-            coo = self.train.tocoo()
-            rows = self.users.maps.orig_to_padded[coo.row]
-            lp = self.users.maps.local_pad
-            keep = (rows >= self.rank * lp) & (rows < (self.rank + 1) * lp)
-            codes_np = build_code_array(
-                rows[keep] - self.rank * lp,
-                self.movies.maps.orig_to_padded[coo.col[keep]],
-                coo.data[keep], q, lp, self.movies.maps.padded_num,
+            with clock.part("codes_host"):
+                # this rank's user rows of the code array, [R/D, C] (all of
+                # it on one device): the COO is filtered by row range
+                # first, so no rank holds the whole array
+                coo = self.train.tocoo()
+                rows = self.users.maps.orig_to_padded[coo.row]
+                lp = self.users.maps.local_pad
+                keep = (rows >= self.rank * lp) & (rows < (self.rank + 1) * lp)
+                codes_np = build_code_array(
+                    rows[keep] - self.rank * lp,
+                    self.movies.maps.orig_to_padded[coo.col[keep]],
+                    coo.data[keep], q, lp, self.movies.maps.padded_num,
+                )
+            with clock.part("codes_copy"):
+                self._codes = torch.from_numpy(codes_np).to(dev)
+                del codes_np
+            with clock.part("codes_degrees"):
+                self._d8_cs = float(q.scale * cfg.alpha)
+                self._d8_cb = float((q.offset - self.mean_rating) * cfg.alpha)
+                # the most ratings an item has within this rank's codes: it
+                # bounds the frozen axis's segments (ops.dense8.sweep_plan)
+                self._d8_max_degree = {
+                    "users": int(self.users.degrees[
+                        self.users.maps.ids_per_dev[self.rank]].max(initial=0)),
+                    "movs": int(np.bincount(coo.col[keep], minlength=1).max()),
+                }
+                # on bf16 operands, each side's walk work
+                # (ops.dense8.walk_work): sweep_bf16_kernel picks the tensor
+                # cores or the walk by it
+                self._d8_walk = dict.fromkeys(self._d8_max_degree)
+                if self._md == torch.bfloat16:
+                    sms = (torch.cuda.get_device_properties(dev)
+                           .multi_processor_count if dev.type == "cuda" else 132)
+                    for name, orientation in (("users", "rows"),
+                                              ("movs", "cols")):
+                        self._d8_walk[name] = walk_work(
+                            self._codes, orientation, cfg.num_latent,
+                            self._d8_max_degree[name], sms)
+
+        self._aux = {}
+        for side, other in ((self.movies, self.users),
+                            (self.users, self.movies)):
+            with clock.part(f"aux.{SIDE_LABELS[side.name]}"):
+                self._aux[side.name] = self._side_aux(side, other)
+        with clock.part("eval_data"):
+            self.ev = self._eval_data()
+            self._mean_rating = torch.as_tensor(self.mean_rating, dtype=dtype,
+                                                device=dev)
+            # item counts on the device: a per-iteration host-to-device copy
+            # would sync the host with the card every iteration
+            self._ns = torch.tensor([self.movies.num, self.users.num],
+                                    dtype=dtype, device=dev)
+
+        with clock.part("state"):
+            # the posterior aggregates only when they are written out (-o),
+            # as in the JAX package
+            aggregate = bool(cfg.output_dir)
+            self.state_m, self.state_u = (
+                init_side_state(side.maps.local_pad, cfg.num_latent, dtype,
+                                aggregate, dev)
+                for side in (self.movies, self.users))
+            nnz_t = self.ev.t_val.shape[0]
+            self.est = EvalState(
+                pavg=torch.zeros(nnz_t, dtype=dtype, device=dev),
+                pm2=torch.zeros(nnz_t, dtype=dtype, device=dev),
             )
-            self._codes = torch.from_numpy(codes_np).to(dev)
-            del codes_np
-            self._d8_cs = float(q.scale * cfg.alpha)
-            self._d8_cb = float((q.offset - self.mean_rating) * cfg.alpha)
-            # the most ratings an item has within this rank's codes: it
-            # bounds the frozen axis's segments (ops.dense8.sweep_plan)
-            self._d8_max_degree = {
-                "users": int(self.users.degrees[
-                    self.users.maps.ids_per_dev[self.rank]].max(initial=0)),
-                "movs": int(np.bincount(coo.col[keep], minlength=1).max()),
-            }
-            # on bf16 operands, each side's walk work (ops.dense8.walk_work):
-            # sweep_bf16_kernel picks the tensor cores or the walk by it
-            self._d8_walk = dict.fromkeys(self._d8_max_degree)
-            if self._md == torch.bfloat16:
-                sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-                       if dev.type == "cuda" else 132)
-                for name, orientation in (("users", "rows"), ("movs", "cols")):
-                    self._d8_walk[name] = walk_work(
-                        self._codes, orientation, cfg.num_latent,
-                        self._d8_max_degree[name], sms)
-
-        self._aux = {side.name: self._side_aux(side, other)
-                     for side, other in ((self.movies, self.users),
-                                         (self.users, self.movies))}
-        self.ev = self._eval_data()
-        self._mean_rating = torch.as_tensor(self.mean_rating, dtype=dtype,
-                                            device=dev)
-        # item counts on the device: a per-iteration host-to-device copy
-        # would sync the host with the card every iteration
-        self._ns = torch.tensor([self.movies.num, self.users.num],
-                                dtype=dtype, device=dev)
-
-        # the posterior aggregates only when they are written out (-o), as
-        # in the JAX package
-        aggregate = bool(cfg.output_dir)
-
-        self.state_m, self.state_u = (
-            init_side_state(side.maps.local_pad, cfg.num_latent, dtype,
-                            aggregate, dev)
-            for side in (self.movies, self.users))
-        nnz_t = self.ev.t_val.shape[0]
-        self.est = EvalState(
-            pavg=torch.zeros(nnz_t, dtype=dtype, device=dev),
-            pm2=torch.zeros(nnz_t, dtype=dtype, device=dev),
-        )
-        self._setup_done = True
-        self._log_banner()
+            self._setup_done = True
+        with clock.part("banner"):
+            self._log_banner()
 
     def _eval_data(self) -> EvalData:
         """The test entries in padded index order on the device.  At D > 1
@@ -805,25 +842,40 @@ class BPMF:
         rank's padded slots of a dense8 or dense side and of a bucketed side
         in reduce mode, its concatenated bucket slots of a bucketed side in
         gather mode (``bpmf_tpu/parallel/spmd.py:712``, ``:1180``); zeros
-        under ``ablate="nonoise"``."""
+        under ``ablate="nonoise"``.  Spans: ``bpmf.sweep.<side>``, and in
+        it ``bpmf.noise.<side>``, then the route's ``bpmf.solve.<side>``
+        and ``bpmf.stats``."""
+        cfg = self.cfg
+        sweep_span, noise_span, solve_span = SIDE_SPANS[side.name]
+        with span(sweep_span):
+            aux = self._aux[side.name]
+            bucketed = side.exchange in ("gather", "halo")
+            ids = aux.bucket_orig if bucketed else aux.local_orig
+            with span(noise_span):
+                if "nonoise" in self._ablates:
+                    noise = torch.zeros((ids.shape[0], cfg.num_latent),
+                                        dtype=self.dtype, device=self.device)
+                else:
+                    noise = draws.noise(it, 0 if side is self.movies else 1,
+                                        ids, side.num, cfg.num_latent,
+                                        self.dtype)
+            return self._sweep_route(side, state, other_items, hp, noise, it,
+                                     solve_span)
+
+    def _sweep_route(self, side: Side, state: SideState, other_items, hp,
+                     noise, it, solve_span: str):
+        """The half-sweep of :meth:`_sweep` on the side's route, once its
+        noise is drawn."""
         cfg = self.cfg
         aux = self._aux[side.name]
-        bucketed = side.exchange in ("gather", "halo")
         md = self._md
-        ids = aux.bucket_orig if bucketed else aux.local_orig
-        if "nonoise" in self._ablates:
-            noise = torch.zeros((ids.shape[0], cfg.num_latent), dtype=self.dtype,
-                                device=self.device)
-        else:
-            noise = draws.noise(it, 0 if side is self.movies else 1, ids,
-                                side.num, cfg.num_latent, self.dtype)
         if side.impl == "bucketed":
             common = dict(
                 num=side.num, mean_rating=self._mean_rating, alpha=cfg.alpha,
                 burnin=cfg.burnin, diagonal_only=cfg.diagonal_only,
                 strict_reference=cfg.strict_reference, solver=self.solver,
                 prop_mu=aux.prop_mu, prop_lambda=aux.prop_lambda,
-                ablate=cfg.ablate, mesh=self.mesh)
+                ablate=cfg.ablate, mesh=self.mesh, solve_span=solve_span)
             # bf16 matmul inputs: the frozen table rounded once, before
             # any exchange or gather (bpmf_tpu/ops/update.py:78-82)
             other_items = other_items.to(md)
@@ -848,9 +900,10 @@ class BPMF:
                 orientation=orientation, route=side.route,
                 prior_tri_t=aux.prior_tri_t, prior_rhs_t=aux.prior_rhs_t,
                 grouped=self.grouped, max_degree=self._d8_max_degree[side.name],
-                matmul_dtype=md)
+                matmul_dtype=md, solve_span=solve_span)
         common = dict(num=side.num, local_valid=aux.local_valid,
-                      alpha=cfg.alpha, burnin=cfg.burnin, ablate=cfg.ablate)
+                      alpha=cfg.alpha, burnin=cfg.burnin, ablate=cfg.ablate,
+                      solve_span=solve_span)
         if side.impl == "dense8":
             return dense8_half_sweep(
                 state, self._codes, other_items, hp, noise, it,
@@ -878,12 +931,13 @@ class BPMF:
         ``dtype`` (the final pass: the matmul dtype): entry-sharded at D > 1
         (``bpmf_tpu/sampler.py:762-778``).  Returns (est, rmse, rmse_avg)."""
         kw = dict(mean_rating=self._mean_rating, burnin=self.cfg.burnin)
-        users = users.to(dtype or self.dtype)
-        movies = movies.to(dtype or self.dtype)
-        if self.mesh is not None:
-            return predict_sharded(self.mesh, self.ev, est, users, movies, it,
-                                   nnz_true=len(self.t_val), **kw)
-        return predict(self.ev, est, users, movies, it, **kw)
+        with span("bpmf.predict"):
+            users = users.to(dtype or self.dtype)
+            movies = movies.to(dtype or self.dtype)
+            if self.mesh is not None:
+                return predict_sharded(self.mesh, self.ev, est, users, movies,
+                                       it, nnz_true=len(self.t_val), **kw)
+            return predict(self.ev, est, users, movies, it, **kw)
 
     def iter_fn(self, state_m: SideState, state_u: SideState, est: EvalState,
                 draws, it: int, skip_predict: bool = False
@@ -909,26 +963,36 @@ class BPMF:
         it returns is new tensors and none of its arguments is written (the
         JAX package donates them; here nothing is copied to spare them).
         Returns (state_m, state_u, est, metrics), the metrics 0-d tensors
-        on the device."""
+        on the device.  Spans: ``bpmf.iter`` around it all, and in it
+        ``bpmf.hyper.draws``, ``bpmf.hyper.sample``, each side's
+        :meth:`_sweep` and ``bpmf.predict``."""
         cfg = self.cfg
-        if "nohyper" in self._ablates:
-            hp_m = hp_u = HyperParams.init(cfg.num_latent, self.dtype, self.device)
-        else:
-            d = draws.hyper_pair(it, (self.movies.num, self.users.num),
-                                 cfg.num_latent, self.dtype)
-            hp_m, hp_u = sample_hyper_pair(d, self._ns,
-                                           torch.stack([state_m.sum, state_u.sum]),
-                                           torch.stack([state_m.cov, state_u.cov]))
-        state_m = self._sweep(self.movies, state_m, state_u.items, hp_m, draws, it)
-        state_u = self._sweep(self.users, state_u, state_m.items, hp_u, draws, it)
-        if skip_predict or "nopredict" in self._ablates:
-            rmse = rmse_avg = torch.zeros((), dtype=self.dtype, device=self.device)
-        else:
-            est, rmse, rmse_avg = self._predict(est, state_u.items,
-                                                state_m.items, it)
-        return state_m, state_u, est, Metrics(
-            rmse=rmse, rmse_avg=rmse_avg, norm_users=torch.sqrt(state_u.norm),
-            norm_movies=torch.sqrt(state_m.norm))
+        with span("bpmf.iter"):
+            if "nohyper" in self._ablates:
+                hp_m = hp_u = HyperParams.init(cfg.num_latent, self.dtype,
+                                               self.device)
+            else:
+                with span("bpmf.hyper.draws"):
+                    d = draws.hyper_pair(it, (self.movies.num, self.users.num),
+                                         cfg.num_latent, self.dtype)
+                with span("bpmf.hyper.sample"):
+                    hp_m, hp_u = sample_hyper_pair(
+                        d, self._ns, torch.stack([state_m.sum, state_u.sum]),
+                        torch.stack([state_m.cov, state_u.cov]))
+            state_m = self._sweep(self.movies, state_m, state_u.items, hp_m,
+                                  draws, it)
+            state_u = self._sweep(self.users, state_u, state_m.items, hp_u,
+                                  draws, it)
+            if skip_predict or "nopredict" in self._ablates:
+                rmse = rmse_avg = torch.zeros((), dtype=self.dtype,
+                                              device=self.device)
+            else:
+                est, rmse, rmse_avg = self._predict(est, state_u.items,
+                                                    state_m.items, it)
+            return state_m, state_u, est, Metrics(
+                rmse=rmse, rmse_avg=rmse_avg,
+                norm_users=torch.sqrt(state_u.norm),
+                norm_movies=torch.sqrt(state_m.norm))
 
     def defer_group(self, n: int) -> int:
         """Iterations per deferred evaluation in a chunk of ``n``
@@ -949,7 +1013,8 @@ class BPMF:
                    32)
 
     def run_chunk(self, n: int) -> Metrics:
-        """Advance the chain n iterations; one host sync at the end.
+        """Advance the chain n iterations; one host sync at the end (span
+        ``bpmf.sync``, counted as ``host_sync`` site ``run_chunk``).
         Returns per-iteration Metrics as numpy arrays of length n.  With a
         deferral group g > 1 each group of g iterations keeps copies of its
         factor tables and evaluates them at once (:func:`~bpmf_tpu_torch.
@@ -972,15 +1037,19 @@ class BPMF:
                 if g > 1:
                     tables.append((self.state_u.items, self.state_m.items))
             if g > 1:
-                self.est, rmse, rmse_avg = predict_deferred(
-                    self.ev, self.est, torch.stack([t[0] for t in tables]),
-                    torch.stack([t[1] for t in tables]), it0,
-                    mean_rating=self._mean_rating, burnin=self.cfg.burnin)
+                with span("bpmf.predict"):
+                    self.est, rmse, rmse_avg = predict_deferred(
+                        self.ev, self.est, torch.stack([t[0] for t in tables]),
+                        torch.stack([t[1] for t in tables]), it0,
+                        mean_rating=self._mean_rating, burnin=self.cfg.burnin)
                 group = [met._replace(rmse=rmse[j], rmse_avg=rmse_avg[j])
                          for j, met in enumerate(group)]
             mets.extend(torch.stack(met) for met in group)
             done += m
-        host = torch.stack(mets).cpu().numpy()  # [n, 4]
+        stacked = torch.stack(mets)
+        with span("bpmf.sync"):
+            count_sync("run_chunk")
+            host = stacked.cpu().numpy()  # [n, 4]
         return Metrics(*(host[:, j] for j in range(4)))
 
     def step(self) -> Metrics:
@@ -994,14 +1063,18 @@ class BPMF:
         return x if self.mesh is None else self.mesh.all_gather(x)
 
     def items_host(self, side: Side, state: SideState) -> np.ndarray:
-        """Items in original order, [num, K] float64 (collective at D > 1)."""
+        """Items in original order, [num, K] float64 (collective at D > 1;
+        a host sync, site ``items_host``)."""
+        count_sync("items_host")
         arr = self.gathered(state.items).detach().to("cpu", torch.float64).numpy()
         return arr[side.maps.orig_to_padded]
 
     def state_host(self) -> tuple[SideState, SideState, EvalState]:
         """(movies, users, eval) state with every rank's rows, in padded
         order, the eval state cut to the real test entries (collective at
-        D > 1)."""
+        D > 1).  The tensors stay on the device: where they come to the
+        host (:meth:`write_output`, ``checkpoint.save``) the host sync is
+        counted."""
         def side(state: SideState) -> SideState:
             return state._replace(
                 items=self.gathered(state.items),
@@ -1014,6 +1087,7 @@ class BPMF:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
+            count_sync("run")
             torch.cuda.synchronize(self.device)
 
     def run(self) -> float:
@@ -1088,6 +1162,7 @@ class BPMF:
         # (bpmf_tpu/sampler.py:1204-1210)
         self.est, rmse, rmse_avg = self._predict(
             self.est, self.state_u.items, self.state_m.items, self.iter, self._md)
+        count_sync("run_final")
         self.rmse = float(rmse)
         self.rmse_avg = float(rmse_avg)
 
@@ -1108,9 +1183,26 @@ class BPMF:
         if rep:
             self._log(rep)
             self._log(f"matrix I/O: {native.status()}")
+            self._log(self.events_report())
         if cfg.profile:
             self._log(self.profile_phases())
         return self.rmse_avg
+
+    def events_report(self) -> str:
+        """This sampler's set-up parts and the process's event counters
+        (``utils.counters.event_counts``), for ``--profile``."""
+        ev = event_counts()
+        total = sum(self.setup_parts.values())
+        lines = [f"set-up parts (host seconds, {total:.4f}s in all):"]
+        for name, t in sorted(self.setup_parts.items(), key=lambda kv: -kv[1]):
+            lines.append(f"  {name:<28} {t:10.4f}s "
+                         f"{100.0 * t / total if total else 0.0:5.1f}%")
+        b = ev["kernel_build"]
+        lines.append(f"kernel builds: {b['count']} ({b['seconds']:.2f}s nvcc)")
+        lines.append("host syncs: " + (", ".join(
+            f"{site} {n}" for site, n in sorted(ev["host_sync"].items()))
+            or "none"))
+        return "\n".join(lines)
 
     def profile_phases(self, iters: int = 25) -> str:
         """Phase attribution by whole-sampler differencing (--profile;
@@ -1166,6 +1258,7 @@ class BPMF:
         state_m, state_u, est = self.state_host()
         if self.rank != 0:
             return
+        count_sync("write_output")
         os.makedirs(odir, exist_ok=True)
         shape = self.test.shape
         for name, values in (("Pavg", est.pavg), ("Pm2", est.pm2)):

@@ -45,7 +45,6 @@ def test_imports_without_jax_or_triton():
         import bpmf_tpu_torch.parallel, bpmf_tpu_torch.parallel.spmd
         import bpmf_tpu_torch.sampler, bpmf_tpu_torch.cli
         import bpmf_tpu_torch.convert, bpmf_tpu_torch.device
-        import bpmf_tpu_torch.profile_chain
         from bpmf_tpu_torch.entry import dryrun_multichip, entry
         import bpmf_tpu_torch.bench
         from bpmf_tpu_torch.ops import launch_counts
